@@ -10,20 +10,30 @@ Phases, one printed line each; any failure raises and exits non-zero:
              version and the host scan, exactly; kernel, plain and bound ms
   flash      the flash-attention kernel at the gemma3-1b prefill shapes
              (B=4, H=4, Hk=1, S=1024, D=256; window 512 and none; f32 and
-             bf16; ragged S=1000) against its plain version; kernel, plain,
-             bound and library (scaled_dot_product_attention) ms
-  reference  gemma3-1b-reduced prefill + decode on the card against the
-             same weights on the CPU
-  serve      full-width gemma3-1b through repro_torch.launch.serve: batch 4,
-             prompt 1024, 32 tokens, a delta snapshot every 8, a node kill
-             and failover at 20; tokens and final logits equal to an
-             uninterrupted run; both kernels launched on that path; then
-             the same decode without snapshots
-Then one JSON line with every kernel's numbers, and the last line
-{"ok": true, "device": {...}}. Times are CUDA-event medians of 20 runs.
+             bf16; ragged S=1000) and at Jamba's (bf16, B=4, H=64, Hk=8,
+             S=1024, D=128, global) against its plain version; kernel,
+             plain, bound and library (scaled_dot_product_attention) ms
+  ssm_scan   the selective-scan kernel at the Jamba prefill shape (f32,
+             B=4, S=1024, D=16384, N=16) and a ragged one (S=1000,
+             D=16376) against its plain version; kernel, plain, bound ms
+  reference  gemma3-1b-reduced and jamba-1.5-large-398b-reduced prefill +
+             decode on the card against the same weights on the CPU, f32
+  serve      full-width gemma3-1b (f32) through repro_torch.launch.serve:
+             batch 4, prompt 1024, 32 tokens, a delta snapshot every 8, a
+             node kill and failover at 20; tokens and final logits equal to
+             an uninterrupted run; delta_mask and flash_attention launched
+             on that path; then the same decode without snapshots
+  jamba      the same serve of the first 4 layers of Jamba-1.5-Large's
+             superblock at full width, in bf16 (Mamba + dense, Mamba + MoE,
+             Mamba + dense, attention + MoE: 23.0e9 parameters);
+             ssm_scan, flash_attention and delta_mask launched on that path
+Then one JSON line with every kernel's numbers (launches summed over the
+two serve runs with a node kill), and the last line {"ok": true,
+"device": {...}}. Times are CUDA-event medians of 20 runs.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -39,6 +49,9 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; dense
 REPS = 20
 SERVE_ARGS = ["--arch", "gemma3-1b", "--batch", "4", "--prompt-len", "1024",
               "--gen", "32", "--snapshot-every", "8", "--seed", "0"]
+JAMBA_ARGS = ["--batch", "4", "--prompt-len", "1024", "--gen", "32",
+              "--snapshot-every", "8", "--seed", "0", "--dtype", "bfloat16"]
+JAMBA_LAYERS = 4  # of the 8-layer superblock: one superblock is 90.5 GB
 
 
 def time_ms(torch, fn) -> float:
@@ -123,13 +136,17 @@ def _attn_work(b, h, hk, s, d, dv, window, itemsize):
 def phase_flash(torch, ops, ref) -> dict:
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    b, h, hk, d = 4, 4, 1, 256
-    cases = [(torch.float32, 1024, 512), (torch.float32, 1024, None),
-             (torch.bfloat16, 1024, 512), (torch.bfloat16, 1024, None),
-             (torch.float32, 1000, 512), (torch.bfloat16, 1000, None)]
+    gemma = (4, 4, 1, 256)  # B, H, Hk, D of gemma3-1b's prefill
+    cases = [(gemma, torch.float32, 1024, 512),
+             (gemma, torch.float32, 1024, None),
+             (gemma, torch.bfloat16, 1024, 512),
+             (gemma, torch.bfloat16, 1024, None),
+             (gemma, torch.float32, 1000, 512),
+             (gemma, torch.bfloat16, 1000, None),
+             ((4, 64, 8, 128), torch.bfloat16, 1024, None)]  # Jamba's
     results = {}
-    for dtype, s, window in cases:
-        gen = torch.Generator(device=dev).manual_seed(s + (window or 0))
+    for (b, h, hk, d), dtype, s, window in cases:
+        gen = torch.Generator(device=dev).manual_seed(s + (window or 0) + h)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((b, h, s, d), (b, hk, s, d),
                                  (b, hk, s, d)))
@@ -165,30 +182,80 @@ def phase_flash(torch, ops, ref) -> dict:
         t_ops = flops / PEAK_FLOPS[name] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
-        print(f"flash_attention[{name} S={s} window={window}]: max_abs_err "
-              f"{err:.3e} (tol {tol:g}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)",
-              flush=True)
+        label = f"{name} B={b} H={h} Hk={hk} S={s} D={d} window={window}"
+        print(f"flash_attention[{label}]: max_abs_err {err:.3e} (tol "
+              f"{tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
         if not ok:
-            raise AssertionError(f"flash_attention {name} S={s} window="
-                                 f"{window}: max abs err {err}")
-        results[(name, s, window)] = {
+            raise AssertionError(f"flash_attention {label}: max abs err "
+                                 f"{err}")
+        results[(name, s, window, h)] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
-    # the kernel's entry: the main path's own case (f32 prefill of a local
-    # layer, 22 of gemma3-1b's 26), with the worst error of all cases
-    main = dict(results[("float32", 1024, 512)])
+        del q, k, v, ke, ve, out, exp
+    # the kernel's entry: gemma3-1b's own case (f32 prefill of a local
+    # layer, 22 of its 26), with the worst error of all cases
+    main = dict(results[("float32", 1024, 512, 4)])
     main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
     return main
 
 
-def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch):
+def phase_ssm(torch, ops, ref) -> dict:
+    """The scan at the Jamba prefill shape, then a ragged S and D (16376 is
+    not a multiple of the kernel's 16 d's a block). Decays are
+    exp(-uniform(0, 0.5)), as Mamba's exp(dt*A) with a small dt."""
+    dev = torch.device("cuda")
+    tol = 1e-4  # FMA and shuffle-sum order vs mul, add and einsum, f32
+    result = None
+    for b, s, d, n in ((4, 1024, 16384, 16), (4, 1000, 16376, 16)):
+        gen = torch.Generator(device=dev).manual_seed(s)
+        decay = torch.rand((b, s, d, n), generator=gen, device=dev)
+        decay = decay.mul_(-0.5).exp_()
+        u = torch.randn((b, s, d, n), generator=gen, device=dev)
+        c = torch.randn((b, s, n), generator=gen, device=dev)
+        s0 = torch.randn((b, d, n), generator=gen, device=dev)
+        y, fin = ops.ssm_scan(decay, u, c, s0)
+        ey, efin = ref.ssm_scan_ref(decay, u, c, s0)
+        torch.cuda.synchronize()
+        err = max((y - ey).abs().max().item(),
+                  (fin - efin).abs().max().item())
+        ok = y.shape == ey.shape and fin.shape == efin.shape and bool(
+            torch.isfinite(y).all()) and torch.allclose(
+                y, ey, atol=tol, rtol=tol) and torch.allclose(
+                    fin, efin, atol=tol, rtol=tol)
+        label = f"f32 B={b} S={s} D={d} N={n}"
+        del y, fin, ey, efin
+        if not ok:
+            raise AssertionError(f"ssm_scan {label}: max abs err {err}")
+        if result is not None:  # the ragged case: checked, not timed
+            print(f"ssm_scan[{label}]: max_abs_err {err:.3e} (tol {tol:g})",
+                  flush=True)
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            continue
+        ms = time_ms(torch, lambda: ops.ssm_scan(decay, u, c, s0))
+        plain_ms = time_ms(torch, lambda: ref.ssm_scan_ref(decay, u, c, s0))
+        nbytes = 4 * (2 * b * s * d * n + b * s * n + 2 * b * d * n
+                      + b * s * d)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"ssm_scan[{label}]: max_abs_err {err:.3e} (tol {tol:g}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)", flush=True)
+        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": "bytes",
+                  "library_ms": None}
+        del decay, u, c, s0
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
+                    arch) -> None:
     """The card's path (kernels) against the CPU's (plain versions) on the
-    same gemma3-1b-reduced weights: prefill 48 tokens, then 4 steps."""
-    cfg = get_config("gemma3-1b-reduced")
+    same reduced weights: prefill 48 tokens, then 4 steps, f32."""
+    cfg = get_config(arch)
     rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32)
     cpu, dev = Model(cfg, rc, "cpu"), Model(cfg, rc, "cuda")
     params_cpu = cpu.init(0)
@@ -206,33 +273,39 @@ def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch):
                                        c_dev)
         worst = max(worst, (l_dev.cpu() - l_cpu).abs().max().item())
         if not torch.allclose(l_dev.cpu(), l_cpu, atol=1e-4, rtol=1e-4):
-            raise AssertionError(f"reference: step {step} logits differ "
-                                 f"by {worst}")
-    print(f"reference: gemma3-1b-reduced prefill 2x48 + 4 decode steps, "
-          f"card vs CPU max abs logit diff {worst:.3e} (tol 1e-4)",
-          flush=True)
+            raise AssertionError(f"reference {arch}: step {step} logits "
+                                 f"differ by {worst}")
+    print(f"reference: {arch} prefill 2x48 + 4 decode steps, card vs CPU "
+          f"max abs logit diff {worst:.3e} (tol 1e-4)", flush=True)
 
 
-def phase_serve(torch, serve, launches) -> dict:
+def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
+    """Serve ``cfg`` with a node kill at 20, then uninterrupted, then
+    without snapshots; the kernels in ``needs`` must launch on the first
+    run."""
     for k in launches:
         launches[k] = 0
-    toks, stats = serve.main(SERVE_ARGS + ["--inject-failure", "20"])
+    toks, stats = serve.main(args + ["--inject-failure", "20"], cfg=cfg)
     counts = dict(launches)
-    ref_toks, ref_stats = serve.main(SERVE_ARGS)
+    torch.cuda.empty_cache()
+    ref_toks, ref_stats = serve.main(args, cfg=cfg)
+    torch.cuda.empty_cache()
     # decode alone: no snapshot, so no cluster thread competes for the host
-    _, bare = serve.main(SERVE_ARGS + ["--snapshot-every", "0"])
+    _, bare = serve.main(args + ["--snapshot-every", "0"], cfg=cfg)
+    torch.cuda.empty_cache()
     if not (stats["logits_finite"] and ref_stats["logits_finite"]):
-        raise AssertionError("serve: non-finite logits")
+        raise AssertionError(f"{label}: non-finite logits")
     if toks.shape != (4, 32) or not (toks >= 0).all() \
-            or not (toks < 262_144).all():
-        raise AssertionError(f"serve: tokens {toks.shape}")
+            or not (toks < cfg.vocab_size).all():
+        raise AssertionError(f"{label}: tokens {toks.shape}")
     if not ((toks == ref_toks).all()
             and stats["logits_crc"] == ref_stats["logits_crc"]):
-        raise AssertionError("serve: the resumed session differs from the "
-                             "uninterrupted run")
-    if min(counts.values()) <= 0 or counts != stats["launches"]:
-        raise AssertionError(f"serve: kernel launches {counts}")
-    print(f"serve: gemma3-1b f32 batch 4, prompt 1024, 32 tokens; prefill "
+        raise AssertionError(f"{label}: the resumed session differs from "
+                             "the uninterrupted run")
+    if min(counts[k] for k in needs) <= 0 or counts != stats["launches"]:
+        raise AssertionError(f"{label}: kernel launches {counts}")
+    peak = max(s["peak_bytes"] for s in (stats, ref_stats, bare))
+    print(f"{label}: batch 4, prompt 1024, 32 tokens; prefill "
           f"{stats['prefill_s']:.4f} s; decode {stats['decode_tok_s']:.2f} "
           f"tok/s ({stats['decode_s']:.3f} s: {stats['decode_steps']} steps "
           f"of {stats['decode_step_ms']:.2f} ms, {stats['snapshots']} "
@@ -241,10 +314,11 @@ def phase_serve(torch, serve, launches) -> dict:
           f"{stats['failover_s']:.4f} s; bytes_logged/bytes_full "
           f"{stats['bytes_logged']}/{stats['bytes_full']} = "
           f"{stats['bytes_logged'] / stats['bytes_full']:.4f}; uninterrupted "
-          f"decode {ref_stats['decode_tok_s']:.2f} tok/s; without snapshots "
+          f"decode {ref_stats['decode_tok_s']:.2f} tok/s (prefill "
+          f"{ref_stats['prefill_s']:.4f} s); without snapshots "
           f"{bare['decode_tok_s']:.2f} tok/s ({bare['decode_step_ms']:.2f} "
-          f"ms a step); tokens and final logits equal; launches {counts}",
-          flush=True)
+          f"ms a step); peak memory {peak} bytes ({peak / 1e9:.2f} GB); "
+          f"tokens and final logits equal; launches {counts}", flush=True)
     return counts
 
 
@@ -264,6 +338,7 @@ def main() -> int:
 
     from repro_torch.ckpt.delta import changed_blocks
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import Stage
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve
     from repro_torch.models.transformer import Model, RunConfig
@@ -273,14 +348,28 @@ def main() -> int:
     phase_device(torch)
     phase_build(_build)
     kernels = {"delta_mask": phase_delta(torch, ops, ref, changed_blocks),
-               "flash_attention": phase_flash(torch, ops, ref)}
-    phase_reference(torch, Model, RunConfig, get_config, tree_to_torch)
-    counts = phase_serve(torch, serve, ops.LAUNCHES)
+               "flash_attention": phase_flash(torch, ops, ref),
+               "ssm_scan": phase_ssm(torch, ops, ref)}
+    for arch in ("gemma3-1b-reduced", "jamba-1.5-large-398b-reduced"):
+        phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
+                        arch)
+    counts = phase_serve(torch, serve, ops.LAUNCHES, "serve gemma3-1b f32",
+                         SERVE_ARGS, ("delta_mask", "flash_attention"),
+                         get_config("gemma3-1b"))
+    jamba = get_config("jamba-1.5-large-398b")
+    cut = dataclasses.replace(jamba, stages=(
+        Stage(block=jamba.stages[0].block[:JAMBA_LAYERS], repeat=1),))
+    jcounts = phase_serve(torch, serve, ops.LAUNCHES,
+                          f"serve jamba-1.5-large {JAMBA_LAYERS} layers bf16",
+                          JAMBA_ARGS, tuple(kernels), cut)
+    counts = {k: counts[k] + jcounts[k] for k in counts}
     where = {"delta_mask": ("src/repro_torch/kernels/csrc/delta_mask.cu",
                             "src/repro/kernels/delta_encode.py:37"),
              "flash_attention": (
                  "src/repro_torch/kernels/csrc/flash_attention.cu",
-                 "src/repro/kernels/flash_attention.py:89")}
+                 "src/repro/kernels/flash_attention.py:89"),
+             "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                          "src/repro/kernels/ssm_scan.py:66")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": where[name][0],
          "replaces": where[name][1], "launches": counts[name], **res}

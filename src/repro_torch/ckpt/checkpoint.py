@@ -80,9 +80,23 @@ class CheckpointConfig:
     async_commit: bool = False  # overlap replication with next step
 
 
+# A bf16 leaf travels as the raw 2-byte words in a ``V2`` numpy array
+# (numpy has no bfloat16). The JAX package writes ``ml_dtypes.bfloat16``
+# arrays, whose ``.npy`` header says ``'<V2'`` where numpy writes a plain
+# ``V2`` array's as ``'|V2'``; the header is written by hand so that the
+# bytes are the JAX package's, header included.
+_BF16_DESCR = "<V2"
+
+
 def _encode_leaf(arr: np.ndarray) -> bytes:
     bio = io.BytesIO()
-    np.save(bio, arr, allow_pickle=False)
+    if arr.dtype == np.dtype("V2"):
+        np.lib.format.write_array_header_1_0(bio, {
+            "descr": _BF16_DESCR, "fortran_order": False,
+            "shape": arr.shape})
+        bio.write(np.ascontiguousarray(arr).tobytes())
+    else:
+        np.save(bio, arr, allow_pickle=False)
     return bio.getvalue()
 
 
@@ -98,6 +112,9 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}/{i}"))
+    elif isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+        out[prefix] = tree.detach().view(torch.int16).cpu().numpy().view(
+            "V2")
     elif isinstance(tree, torch.Tensor):
         out[prefix] = tree.detach().cpu().numpy()
     else:

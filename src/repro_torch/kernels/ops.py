@@ -13,9 +13,11 @@ import torch
 from repro_torch.kernels import delta_encode as _delta
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels._build import LAUNCHES
 
-__all__ = ["LAUNCHES", "delta_mask", "delta_pack", "flash_attention"]
+__all__ = ["LAUNCHES", "delta_mask", "delta_pack", "flash_attention",
+           "ssm_scan"]
 
 
 def _route(t: torch.Tensor, name: str) -> str:
@@ -36,6 +38,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                                        scale=scale)
     return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                        scale=scale)
+
+
+def ssm_scan(decay, u, c, state0):
+    """decay, u: (B, S, D, N), decay in (0, 1]; c: (B, S, N); state0:
+    (B, D, N). Returns (y (B, S, D) f32, final state (B, D, N) f32):
+    ``s_t = decay_t*s_{t-1} + u_t``, ``y_t = sum_n s_t[..., n]*c_t[n]``."""
+    _ssm.check_args(decay, u, c, state0)
+    if _route(decay, "ssm_scan") == "cpu":
+        return ref.ssm_scan_ref(decay, u, c, state0)
+    return _ssm.ssm_scan_cuda(decay, u, c, state0)
 
 
 def delta_mask(new, old, *, block: int = 2048, bpt: int = 8):

@@ -37,6 +37,22 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     return out.to(q.dtype)
 
 
+def ssm_scan_ref(decay, u, c, state0):
+    """Selective-scan oracle (the Mamba recurrence), sequential over S.
+
+    decay: (B, S, D, N) in (0, 1]; u: (B, S, D, N); c: (B, S, N);
+    state0: (B, D, N). Computes in f32 and returns
+    (y (B, S, D) f32, final state (B, D, N) f32):
+      s_t = decay_t * s_{t-1} + u_t ;  y_t = sum_n s_t[:, :, n] * c_t[n]
+    """
+    s = state0.float()
+    ys = []
+    for t in range(decay.shape[1]):
+        s = decay[:, t].float() * s + u[:, t].float()
+        ys.append(torch.einsum("bdn,bn->bd", s, c[:, t].float()))
+    return torch.stack(ys, dim=1), s
+
+
 def delta_mask_ref(new, old, block: int):
     """int8 changed-block bitmap of two equal 1-D arrays (1 = differs)."""
     n = new.shape[0] // block

@@ -1,19 +1,22 @@
 """Batched serving: prefill + greedy decode loop with Assise-backed
 session state, on the card by default.
 
-Port of ``repro/launch/serve.py``. Every --snapshot-every tokens the KV
-caches (plus the sampler cursor) are checkpointed in delta mode through a
-3-node Assise cluster: the changed-block scan of each snapshot runs on
-the ``delta_mask`` kernel, and prefill attention on the flash-attention
-kernel. --inject-failure kills the serving node mid-generation and
-resumes decode on the cache replica from the last snapshot, the paper's
-failover applied to inference sessions.
+Port of ``repro/launch/serve.py``. Every --snapshot-every tokens the
+decode state (KV caches, Mamba conv and SSM states, plus the sampler
+cursor) is checkpointed in delta mode through a 3-node Assise cluster: the
+changed-block scan of each snapshot runs on the ``delta_mask`` kernel,
+prefill attention on the flash-attention kernel and the Mamba prefill
+recurrence on the ``ssm_scan`` kernel. --inject-failure kills the serving
+node mid-generation and resumes decode on the cache replica from the last
+snapshot, the paper's failover applied to inference sessions.
 
 Example (on a machine with an NVIDIA H100):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --batch 4 --prompt-len 1024 --gen 32 --snapshot-every 8 \\
       --inject-failure 20
-Add ``--device cpu`` to run on the CPU (use ``gemma3-1b-reduced`` there).
+Add ``--device cpu`` to run on the CPU (use ``gemma3-1b-reduced`` or
+``jamba-1.5-large-398b-reduced`` there). ``--dtype bfloat16`` serves with
+bf16 weights and caches (the SSM states stay f32).
 """
 from __future__ import annotations
 
@@ -40,8 +43,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None):
-    """Returns (tokens (batch, gen) numpy, stats dict)."""
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def main(argv=None, cfg=None):
+    """Returns (tokens (batch, gen) numpy, stats dict). ``cfg`` (an
+    ``ArchConfig``) overrides ``--arch``, for a config that has no name,
+    such as a depth cut."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--batch", type=int, default=4)
@@ -54,13 +62,18 @@ def main(argv=None):
                     help="cluster directory (default: a fresh temporary "
                          "directory, removed at the end)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
+                    help="weights and caches (SSM states stay float32)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32)
+    cfg = cfg or get_config(args.arch)
+    dtype = DTYPES[args.dtype]
+    rc = RunConfig(param_dtype=dtype, cache_dtype=dtype)
     model = Model(cfg, rc, device=args.device)
     dev = model.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     params = model.init(args.seed)
     max_len = args.prompt_len + args.gen
     launches0 = dict(LAUNCHES)
@@ -160,6 +173,8 @@ def main(argv=None):
         # mean a resumed session computed exactly what an uninterrupted one
         "logits_crc": zlib.crc32(logits.float().cpu().numpy().tobytes()),
         "logits_finite": bool(torch.isfinite(logits).all()),
+        "peak_bytes": torch.cuda.max_memory_allocated(dev)
+        if dev.type == "cuda" else None,
     }
     return toks, stats
 

@@ -11,8 +11,12 @@ import torch.nn.functional as F
 
 def normal_init(gen: torch.Generator, shape, dtype, device,
                 std: float = 0.02) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device) * std).to(dtype)
+    """f32 normal samples times ``std``, cast to ``dtype``. Scaled in
+    place: making a leaf costs its f32 size once (12.9 GB for one of
+    Jamba's (16, 8192, 24576) expert leaves), not twice."""
+    t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return t.mul_(std).to(dtype)
 
 
 # ---------------------------------------------------------------------------

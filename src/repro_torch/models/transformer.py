@@ -1,19 +1,21 @@
-"""Decoder-only model over stages of repeated superblocks: dense stages.
+"""Decoder-only model over stages of repeated superblocks.
 
-Port of the dense part of ``repro/models/transformer.py``. An
+Port of ``repro/models/transformer.py`` for serving. An
 architecture is a sequence of stages; each stage is a superblock (tuple of
 LayerSpec) repeated R times. As in the JAX package, a stage with R > 1
 keeps its parameters and caches stacked along a leading dim of size R, so
 leaf names and shapes match the reference one to one; where JAX scans
 over that dim, this module loops over it in Python.
 
+Mixers are GQA attention and Mamba; MLPs are dense or MoE, so hybrid
+stacks such as Jamba's run as they are.
+
 Two modes share one code path:
   - prefill: full sequence, writes the decode cache (in place)
   - decode:  single token at position ``pos`` against the cache (in place)
 
-Mamba, RWKV, MoE, MLA, modality front ends and additive position
-embeddings are not ported yet: they raise ``NotImplementedError``
-(ROADMAP, Queue 1).
+RWKV, MLA, modality front ends and additive position embeddings are not
+ported yet: they raise ``NotImplementedError`` (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ArchConfig, LayerSpec, Stage
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
                                        init_norm, normal_init, softcap)
 
@@ -38,7 +42,7 @@ def padded_vocab(v: int) -> int:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Runtime knobs the dense serving path reads."""
+    """Runtime knobs the serving path reads."""
 
     param_dtype: Any = torch.bfloat16
     cache_dtype: Any = torch.bfloat16
@@ -51,17 +55,13 @@ def check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: modality front ends and sinusoidal position "
             "embeddings are not ported yet (ROADMAP: Queue 1)")
     for spec in cfg.layer_specs():
-        if spec.kind != "attn":
+        if spec.kind not in ("attn", "mamba"):
             raise NotImplementedError(
                 f"{cfg.name}: {spec.kind} mixers are not ported yet "
                 "(ROADMAP: Queue 1, remaining mixers)")
-        if spec.attn.mla is not None:
+        if spec.kind == "attn" and spec.attn.mla is not None:
             raise NotImplementedError(
                 f"{cfg.name}: MLA is not ported yet "
-                "(ROADMAP: Queue 1, remaining mixers)")
-        if spec.mlp.kind != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mlp.kind} MLPs are not ported yet "
                 "(ROADMAP: Queue 1, remaining mixers)")
 
 
@@ -72,12 +72,23 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def _init_block(cfg: ArchConfig, spec: LayerSpec, gen, dtype, device,
                 lead) -> dict:
-    return {"ln1": init_norm(cfg.norm, cfg.d_model, dtype, device, lead),
-            "ln2": init_norm(cfg.norm, cfg.d_model, dtype, device, lead),
-            "mixer": attn_mod.init_attn(gen, cfg.d_model, spec.attn, dtype,
-                                        device, lead),
-            "mlp": init_mlp(gen, cfg.d_model, spec.mlp.d_ff, spec.mlp.act,
-                            dtype, device, lead)}
+    p = {"ln1": init_norm(cfg.norm, cfg.d_model, dtype, device, lead),
+         "ln2": init_norm(cfg.norm, cfg.d_model, dtype, device, lead)}
+    if spec.kind == "attn":
+        p["mixer"] = attn_mod.init_attn(gen, cfg.d_model, spec.attn, dtype,
+                                        device, lead)
+    else:
+        p["mixer"] = ssm_mod.init_mamba_full(gen, cfg.d_model, spec.mamba,
+                                             dtype, device, lead)
+    if spec.mlp.kind == "dense":
+        p["mlp"] = init_mlp(gen, cfg.d_model, spec.mlp.d_ff, spec.mlp.act,
+                            dtype, device, lead)
+    elif spec.mlp.kind == "moe":
+        p["mlp"] = moe_mod.init_moe(gen, cfg.d_model, spec.mlp.moe,
+                                    spec.mlp.act, dtype, device, lead)
+    else:
+        p["mlp"] = {}
+    return p
 
 
 def _init_superblock(cfg, stage: Stage, gen, dtype, device, lead) -> dict:
@@ -110,6 +121,21 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 # ===========================================================================
 
 
+def _init_layer_cache(cfg, spec: LayerSpec, batch: int, max_len: int, rc,
+                      device, lead):
+    cd = rc.cache_dtype
+    if spec.kind == "attn":
+        shape = (*lead, batch, max_len, spec.attn.n_kv_heads,
+                 spec.attn.head_dim)
+        return {name: torch.zeros(shape, dtype=cd, device=device)
+                for name in ("k", "v")}
+    di = spec.mamba.d_inner(cfg.d_model)
+    return {"conv": torch.zeros((*lead, batch, spec.mamba.d_conv - 1, di),
+                                dtype=cd, device=device),
+            "ssm": torch.zeros((*lead, batch, di, spec.mamba.d_state),
+                               dtype=torch.float32, device=device)}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                rc: RunConfig = RunConfig(), device="cuda"):
     check_supported(cfg)
@@ -117,12 +143,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     caches = []
     for stage in cfg.stages:
         lead = () if stage.repeat == 1 else (stage.repeat,)
-        caches.append({
-            f"L{i}": {name: torch.zeros(
-                (*lead, batch, max_len, spec.attn.n_kv_heads,
-                 spec.attn.head_dim), dtype=rc.cache_dtype, device=device)
-                for name in ("k", "v")}
-            for i, spec in enumerate(stage.block)})
+        caches.append({f"L{i}": _init_layer_cache(cfg, spec, batch, max_len,
+                                                  rc, device, lead)
+                       for i, spec in enumerate(stage.block)})
     return caches
 
 
@@ -131,28 +154,45 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 # ===========================================================================
 
 
-def _apply_block(cfg, spec: LayerSpec, params, x, *, mode, positions, pos,
+def _apply_mixer(cfg, spec: LayerSpec, params, x, *, mode, positions, pos,
                  cache):
-    h = apply_norm(cfg.norm, params["ln1"], x, cfg.norm_eps)
+    if spec.kind == "attn":
+        if mode == "decode":
+            return attn_mod.gqa_decode(params, x, spec.attn, pos=pos,
+                                       cache=cache)
+        return attn_mod.gqa_forward(params, x, spec.attn,
+                                    positions=positions, cache=cache)
     if mode == "decode":
-        mix_out, cache = attn_mod.gqa_decode(params["mixer"], h, spec.attn,
-                                             pos=pos, cache=cache)
-    else:
-        mix_out, cache = attn_mod.gqa_forward(params["mixer"], h, spec.attn,
-                                              positions=positions,
-                                              cache=cache)
+        return ssm_mod.mamba_decode(params, x, spec.mamba, cfg.d_model,
+                                    cache=cache)
+    return ssm_mod.mamba_forward(params, x, spec.mamba, cfg.d_model,
+                                 cache=cache)
+
+
+def _apply_block(cfg, spec: LayerSpec, params, x, *, mode, positions, pos,
+                 cache, n_groups):
+    h = apply_norm(cfg.norm, params["ln1"], x, cfg.norm_eps)
+    mix_out, _ = _apply_mixer(cfg, spec, params["mixer"], h, mode=mode,
+                              positions=positions, pos=pos, cache=cache)
     x = x + mix_out
     h = apply_norm(cfg.norm, params["ln2"], x, cfg.norm_eps)
-    return x + apply_mlp(params["mlp"], h, spec.mlp.act), cache
+    if spec.mlp.kind == "dense":
+        x = x + apply_mlp(params["mlp"], h, spec.mlp.act)
+    elif spec.mlp.kind == "moe":
+        y, _ = moe_mod.apply_moe(params["mlp"], h, spec.mlp.moe,
+                                 spec.mlp.act, n_groups=n_groups)
+        x = x + y
+    return x
 
 
 def _apply_superblock(cfg, stage: Stage, params, x, *, mode, positions, pos,
-                      cache):
+                      cache, n_groups):
     for i, spec in enumerate(stage.block):
         li = f"L{i}"
-        x, _ = _apply_block(cfg, spec, params[li], x, mode=mode,
-                            positions=positions, pos=pos,
-                            cache=None if cache is None else cache[li])
+        x = _apply_block(cfg, spec, params[li], x, mode=mode,
+                         positions=positions, pos=pos,
+                         cache=None if cache is None else cache[li],
+                         n_groups=n_groups)
     return x
 
 
@@ -163,15 +203,16 @@ def _index(tree, r: int):
 
 
 def _apply_stage(cfg, stage: Stage, params, x, *, mode, positions, pos,
-                 cache):
+                 cache, n_groups):
     if stage.repeat == 1:
         return _apply_superblock(cfg, stage, params, x, mode=mode,
-                                 positions=positions, pos=pos, cache=cache)
+                                 positions=positions, pos=pos, cache=cache,
+                                 n_groups=n_groups)
     for r in range(stage.repeat):  # the JAX package's lax.scan
-        x = _apply_superblock(cfg, stage, _index(params, r), x, mode=mode,
-                              positions=positions, pos=pos,
+        x = _apply_superblock(cfg, stage, _index(params, r), x,
+                              mode=mode, positions=positions, pos=pos,
                               cache=None if cache is None
-                              else _index(cache, r))
+                              else _index(cache, r), n_groups=n_groups)
     return x
 
 
@@ -205,10 +246,12 @@ def forward(cfg: ArchConfig, params, tokens, *, mode: str = "prefill",
     if mode == "prefill":
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(cfg, params, tokens)
+    n_groups = moe_mod.default_groups(tokens.shape[0], tokens.shape[1], mode)
     for i, stage in enumerate(cfg.stages):
         x = _apply_stage(cfg, stage, params["stages"][i], x, mode=mode,
                          positions=positions, pos=pos,
-                         cache=None if caches is None else caches[i])
+                         cache=None if caches is None else caches[i],
+                         n_groups=n_groups)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     return x, caches
 

@@ -17,8 +17,10 @@ from repro_torch import device as device_mod
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: same bits
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
+    # ml_dtypes.bfloat16 (JAX's leaves), or the raw V2 words of a bf16
+    # checkpoint leaf: the same bits
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
+        return torch.from_numpy(a.view(np.int16).copy()).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 

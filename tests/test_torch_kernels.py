@@ -235,3 +235,44 @@ def test_delta_mask_kernel(cuda, block, bpt):
                                                    torch.from_numpy(old),
                                                    block))
     assert not ops.delta_mask(nv, nv.clone(), block=block, bpt=bpt).any()
+
+
+def _scan_inputs(shape, seed, device):
+    b, s, d, n = shape
+    rng = np.random.default_rng(seed)
+    arrs = (np.exp(-rng.uniform(0.0, 2.0, (b, s, d, n))),
+            rng.standard_normal((b, s, d, n)), rng.standard_normal((b, s, n)),
+            rng.standard_normal((b, d, n)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1024, 512, 16),  # Jamba's N
+                                   (2, 1000, 300, 16),  # ragged S and D
+                                   (1, 77, 33, 4),  # the reduced config's N
+                                   (2, 64, 17, 32), (3, 50, 9, 1)])
+def test_ssm_scan_kernel(cuda, shape):
+    decay, u, c, s0 = _scan_inputs(shape, seed=shape[1], device=cuda)
+    before = ops.LAUNCHES["ssm_scan"]
+    y, fin = ops.ssm_scan(decay, u, c, s0)
+    ey, efin = ref.ssm_scan_ref(decay, u, c, s0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan"] == before + 1
+    assert y.shape == ey.shape and fin.shape == efin.shape
+    # FMA and the shuffle sum's order against the plain version's mul, add
+    # and einsum: a few float32 ulps per step, damped by decay <= 1
+    torch.testing.assert_close(y, ey, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(fin, efin, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["bfloat16", "n3", "n64", "strided"])
+def test_ssm_scan_kernel_rejects(cuda, bad):
+    n = {"n3": 3, "n64": 64}.get(bad, 8)
+    decay, u, c, s0 = _scan_inputs((2, 16, 8, n), seed=0, device=cuda)
+    if bad == "bfloat16":
+        decay = decay.to(torch.bfloat16)
+    if bad == "strided":
+        u = u.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        ops.ssm_scan(decay, u, c, s0)

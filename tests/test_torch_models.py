@@ -1,4 +1,5 @@
-"""The port's dense model (repro_torch.models) against the JAX package.
+"""The port's model (repro_torch.models: dense, hybrid Mamba/attention and
+MoE stacks) against the JAX package.
 
 Inputs are made from a seed with numpy and handed to both packages; the
 JAX parameters and caches are carried into the port with
@@ -148,20 +149,32 @@ def test_gqa_forward_and_decode(window):
 # -- the whole model ----------------------------------------------------------
 
 
-def _configs(repeat0):
+def _configs(repeat0, arch="gemma3-1b-reduced"):
     def fix(cfg):
         if repeat0 == 1:
             return cfg
         st = list(cfg.stages)
         st[0] = dataclasses.replace(st[0], repeat=repeat0)
         return dataclasses.replace(cfg, stages=tuple(st))
-    return (fix(jax_get_config("gemma3-1b-reduced")),
-            fix(port_get_config("gemma3-1b-reduced")))
+    return fix(jax_get_config(arch)), fix(port_get_config(arch))
 
 
 @pytest.mark.parametrize("repeat0", [1, 2])
 def test_prefill_and_decode_match_jax(repeat0, small_rc):
-    jcfg, pcfg = _configs(repeat0)
+    _check_prefill_and_decode(*_configs(repeat0), small_rc,
+                              np.random.default_rng(repeat0))
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b-reduced",
+                                  "deepseek-moe-16b-reduced"])
+def test_hybrid_and_moe_prefill_and_decode_match_jax(arch, small_rc):
+    """Jamba's superblock (Mamba + attention, dense + MoE) and a MoE stack
+    with shared experts; decode runs 2-token MoE groups, capacity 2."""
+    _check_prefill_and_decode(*_configs(1, arch), small_rc,
+                              np.random.default_rng(7))
+
+
+def _check_prefill_and_decode(jcfg, pcfg, small_rc, rng):
     b, s, n_dec = 2, 40, 6
     max_len = s + n_dec
     model = jtf.Model(jcfg, small_rc)
@@ -169,7 +182,6 @@ def test_prefill_and_decode_match_jax(repeat0, small_rc):
     jcaches = model.init_cache(b, max_len)
     params = params_from_jax(_np_tree(jparams), CPU)
     caches = caches_from_jax(_np_tree(jcaches), CPU)
-    rng = np.random.default_rng(repeat0)
     toks = rng.integers(0, jcfg.vocab_size, (b, s + n_dec), dtype=np.int32)
     tol = dict(atol=1e-4, rtol=1e-4)
 
@@ -241,8 +253,29 @@ def test_init_params_leaves_match_jax_full():
     assert sum(math.prod(s) for s in pshapes.values()) == 999_812_736
 
 
+def test_init_leaves_match_jax_full_jamba():
+    """Full Jamba-1.5-Large on the meta device: every parameter and cache
+    leaf has the JAX package's name and shape (cache dtypes too)."""
+    jcfg = jax_get_config("jamba-1.5-large-398b")
+    pcfg = port_get_config("jamba-1.5-large-398b")
+    jshapes = jax.eval_shape(lambda k: jtf.init_params(jcfg, k),
+                             jax.random.key(0))
+    pshapes = _meta_shapes(ptf.init_params(pcfg, torch.Generator(),
+                                           device="meta"))
+    assert pshapes == _meta_shapes(jshapes)
+    assert sum(math.prod(s) for s in pshapes.values()) == 398_555_111_424
+    jcache = jax.eval_shape(lambda: jtf.init_cache(jcfg, 4, 64))
+    pcache = ptf.init_cache(pcfg, 4, 64, device="meta")
+    assert _meta_shapes(pcache) == _meta_shapes(jcache)
+    assert sorted({str(t.dtype) for t in jax.tree.leaves(jcache)}) == \
+        ["bfloat16", "float32"]
+    for jleaf, pleaf in zip(jax.tree.leaves(jcache),
+                            jax.tree.leaves(pcache)):
+        assert str(pleaf.dtype) == f"torch.{jleaf.dtype}"
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b-reduced",
-                                  "deepseek-moe-16b-reduced",
+                                  "musicgen-large-reduced",
                                   "minicpm3-4b-reduced"])
 def test_unported_mixers_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

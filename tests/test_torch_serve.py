@@ -58,7 +58,31 @@ def test_serve_failover_matches_uninterrupted_run(small_blocks, tmp_path):
     assert stats["snapshots"] == ref_stats["snapshots"] == 4
     assert 0 < ref_stats["bytes_logged"] < ref_stats["bytes_full"]
     # on the CPU the plain versions run: no kernel was launched
-    assert stats["launches"] == {"delta_mask": 0, "flash_attention": 0}
+    assert stats["launches"] == {"delta_mask": 0, "flash_attention": 0,
+                                 "ssm_scan": 0}
+    assert stats["peak_bytes"] is None  # a device metric: not on the CPU
+
+
+def test_serve_jamba_bf16_failover_matches_uninterrupted_run(small_blocks,
+                                                             tmp_path):
+    """Jamba's superblock (Mamba + attention, dense + MoE) with bf16
+    weights and caches: the bf16 KV and conv caches and the f32 SSM states
+    go through the delta snapshots and the failover."""
+    args = ["--device", "cpu", "--arch", "jamba-1.5-large-398b-reduced",
+            "--dtype", "bfloat16", "--batch", "2", "--prompt-len", "24",
+            "--gen", "12", "--snapshot-every", "4"]
+    toks, stats = serve.main(args + ["--inject-failure", "6", "--workdir",
+                                     str(tmp_path / "a")])
+    assert small_blocks
+    ref_toks, ref_stats = serve.main(args + ["--workdir",
+                                             str(tmp_path / "b")])
+    assert toks.shape == (2, 12)
+    np.testing.assert_array_equal(toks, ref_toks)
+    assert stats["logits_crc"] == ref_stats["logits_crc"]
+    assert stats["logits_finite"] and stats["failover_s"] > 0
+    # tokens 4 before the kill at 6; 8 and 12 after resuming from 4
+    assert stats["snapshots"] == ref_stats["snapshots"] == 3
+    assert 0 < ref_stats["bytes_logged"] < ref_stats["bytes_full"]
 
 
 def test_serve_defaults_to_the_card():
@@ -118,6 +142,47 @@ def test_checkpointer_matches_jax(tmp_path):
     finally:
         jc.close()
         pc.close()
+
+
+def test_bf16_leaf_bytes_match_jax_and_restore(tmp_path):
+    """A bf16 cache leaf is encoded with the JAX package's ``.npy`` bytes
+    (``ml_dtypes.bfloat16``, header ``'<V2'``) and restores bit for bit
+    through the checkpointer."""
+    import ml_dtypes
+    from repro_torch.weights import tree_to_torch
+
+    rng = np.random.default_rng(12)
+    kv = torch.from_numpy(rng.standard_normal((2, 40, 2, 16)).astype(
+        np.float32)).to(torch.bfloat16)
+    state = {"caches": [{"L0": {"k": kv, "v": kv * 2},
+                         "L1": {"conv": kv[:, :3, 0], "ssm": kv.float()}}]}
+    flat = pckpt._flatten(state)
+    for name, leaf in jckpt._flatten(
+            {"caches": [{"L0": {"k": kv.float().numpy().astype(
+                ml_dtypes.bfloat16)}}]}).items():
+        assert pckpt._encode_leaf(flat[name]) == jckpt._encode_leaf(leaf)
+        assert b"'descr': '<V2'" in pckpt._encode_leaf(flat[name])
+
+    cluster = pcore.AssiseCluster(str(tmp_path / "c"), n_nodes=3,
+                                  replication=2, n_reserve=1)
+    try:
+        ck = pckpt.AssiseCheckpointer(cluster.open_process("p"),
+                                      pckpt.CheckpointConfig(delta_block=256),
+                                      device="cpu")
+        ck.save(0, state)
+        state["caches"][0]["L0"]["k"][:, 7] += 1  # a delta step
+        ck.save(1, state)
+        restored, _ = ck.restore()
+    finally:
+        cluster.close()
+    back = tree_to_torch(pckpt.unflatten_into(state, restored), "cpu")
+    for name, leaf in pckpt._flatten(state).items():
+        got = pckpt._flatten(back)[name]
+        assert got.dtype == leaf.dtype and got.tobytes() == leaf.tobytes()
+    assert back["caches"][0]["L0"]["k"].dtype == torch.bfloat16
+    assert back["caches"][0]["L1"]["ssm"].dtype == torch.float32
+    assert torch.equal(back["caches"][0]["L0"]["k"].view(torch.int16),
+                       state["caches"][0]["L0"]["k"].view(torch.int16))
 
 
 def _port_sources():
