@@ -12,7 +12,9 @@ Phases, one printed line each; any failure raises and exits non-zero:
              (B=4, H=4, Hk=1, S=1024, D=256; window 512 and none; f32 and
              bf16; ragged S=1000) and at Jamba's (bf16, B=4, H=64, Hk=8,
              S=1024, D=128, global) against its plain version; kernel,
-             plain, bound and library (scaled_dot_product_attention) ms
+             plain, bound and library (scaled_dot_product_attention) ms;
+             each line names the kernel's path: mma (bf16, tensor cores)
+             or simt (f32, CUDA cores)
   ssm_scan   the selective-scan kernel at the Jamba prefill shape (f32,
              B=4, S=1024, D=16384, N=16) and a ragged one (S=1000,
              D=16376) against its plain version; kernel, plain, bound ms
@@ -28,7 +30,8 @@ Phases, one printed line each; any failure raises and exits non-zero:
              Mamba + dense, attention + MoE: 23.0e9 parameters);
              ssm_scan, flash_attention and delta_mask launched on that path
 Then one JSON line with every kernel's numbers (launches summed over the
-two serve runs with a node kill), and the last line {"ok": true,
+two serve runs with a node kill; flash_attention's entry is gemma3-1b's
+f32 case, with every case under "cases"), and the last line {"ok": true,
 "device": {...}}. Times are CUDA-event medians of 20 runs.
 """
 from __future__ import annotations
@@ -182,7 +185,9 @@ def phase_flash(torch, ops, ref) -> dict:
         t_ops = flops / PEAK_FLOPS[name] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
-        label = f"{name} B={b} H={h} Hk={hk} S={s} D={d} window={window}"
+        path = "mma" if dtype == torch.bfloat16 else "simt"
+        label = (f"{name} B={b} H={h} Hk={hk} S={s} D={d} window={window} "
+                 f"{path}")
         print(f"flash_attention[{label}]: max_abs_err {err:.3e} (tol "
               f"{tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -191,15 +196,20 @@ def phase_flash(torch, ops, ref) -> dict:
             raise AssertionError(f"flash_attention {label}: max abs err "
                                  f"{err}")
         results[(name, s, window, h)] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
+            "label": label, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
         del q, k, v, ke, ve, out, exp
     # the kernel's entry: gemma3-1b's own case (f32 prefill of a local
-    # layer, 22 of its 26), with the worst error of all cases
+    # layer, 22 of its 26), with the worst error of all cases, and every
+    # case beside it
     main = dict(results[("float32", 1024, 512, 4)])
+    del main["label"]
     main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
+    main["cases"] = [{key: r[key] for key in (
+        "label", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+        for r in results.values()]
     return main
 
 

@@ -6,7 +6,9 @@ Port of ``repro/kernels/flash_attention.py`` (the Pallas
 window, in (B, H, S, D) layout, ``Dv != D`` allowed. Unlike the Pallas
 wrapper it takes any S (the kernel masks the ragged last tile) and GQA
 inputs (k, v with Hk heads, H % Hk == 0) without expanding them.
-``ops.flash_attention`` dispatches here for CUDA tensors.
+``ops.flash_attention`` dispatches here for CUDA tensors. bfloat16 runs on
+tensor cores (``flash_fwd_mma``), float32 on CUDA cores
+(``flash_fwd_simt``).
 """
 from __future__ import annotations
 
@@ -41,12 +43,32 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{v.device}")
 
 
+def check_mma_layout(tensors: dict) -> None:
+    """The bfloat16 kernel copies 16-byte rows (``cp.async``,
+    ``ldmatrix``): each (B, H, S, D) tensor needs a 16-byte aligned data
+    pointer, batch, head and sequence strides that are multiples of 8
+    elements, and a last dim that is a multiple of 8. Raises ValueError
+    naming what fails; there is no other path for such an input."""
+    for name, t in tensors.items():
+        if t.shape[-1] % 8:
+            raise ValueError(f"flash_attention (bfloat16): {name} has head "
+                             f"dim {t.shape[-1]}, not a multiple of 8")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention (bfloat16): {name}'s data "
+                             f"pointer is not 16-byte aligned")
+        if any(t.shape[i] > 1 and t.stride(i) % 8 for i in range(3)):
+            raise ValueError(f"flash_attention (bfloat16): {name}'s batch, "
+                             f"head and sequence strides {t.stride()[:3]} "
+                             f"are not all multiples of 8 elements")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window, scale) -> torch.Tensor:
     """Launch the kernel. Inputs may be strided views (for example the
     (B, S, H, D) projections transposed) as long as the last dim is
-    contiguous. Returns (B, H, S, Dv) in ``q.dtype``, laid out in memory as
-    (B, S, H, Dv) so that the caller's transpose back is free."""
+    contiguous (bfloat16: see ``check_mma_layout``). Returns (B, H, S, Dv)
+    in ``q.dtype``, laid out in memory as (B, S, H, Dv) so that the
+    caller's transpose back is free."""
     b, h, s, d = q.shape
     hk, dv = k.shape[1], v.shape[-1]
     if q.dtype not in _DTYPES:
@@ -57,19 +79,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_HEAD_DIM}, got D={d}, Dv={dv}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention wants a contiguous last dim")
+    out = torch.empty((b, s, h, dv), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if q.dtype == torch.bfloat16:
+        check_mma_layout({"q": q, "k": k, "v": v, "out": out})
     lib = _build.load("flash_attention")
-    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
-    smem = lib.flash_attention_smem_bytes(d, dv)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"flash_attention: D={d}, Dv={dv} need {smem} bytes "
-                         f"of shared memory, more than {_SMEM_LIMIT}")
+    if q.dtype == torch.float32:
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+        smem = lib.flash_attention_smem_bytes(d, dv)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"flash_attention: D={d}, Dv={dv} need {smem} "
+                             f"bytes of shared memory, more than "
+                             f"{_SMEM_LIMIT}")
     lib.flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.flash_attention_fwd.restype = ctypes.c_int
-    out = torch.empty((b, s, h, dv), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -11,6 +11,7 @@ they need no JAX, so that they run on a machine with the card:
         tests/test_torch_kernels.py
 """
 import io
+import re
 import types
 
 import numpy as np
@@ -19,7 +20,8 @@ import torch
 
 from repro.ckpt.delta import changed_blocks
 from repro_torch.ckpt.checkpoint import _changed_block_idxs
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import flash_attention as flash
 
 
 @pytest.fixture(scope="module")
@@ -103,6 +105,49 @@ def test_flash_attention_rejects_bad_shapes():
                     torch.float32)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v)
+
+
+def _bsdh_views(b, s, h, hk, d, dtype):
+    """q, k, v as the model hands them over: (B, S, H*D) projections
+    reshaped to (B, S, H, D) and transposed to (B, H, S, D)."""
+    rng = np.random.default_rng(d + h)
+    return [torch.from_numpy(rng.standard_normal((b, s, n * d)).astype(
+        np.float32)).to(dtype).reshape(b, s, n, d).transpose(1, 2)
+        for n in (h, hk, hk)]
+
+
+@pytest.mark.parametrize("d,h,hk", [(128, 64, 8), (256, 4, 1)])
+def test_check_mma_layout_takes_model_views(d, h, hk):
+    q, k, v = _bsdh_views(2, 24, h, hk, d, torch.bfloat16)
+    flash.check_mma_layout({"q": q, "k": k, "v": v})
+
+
+def _misaligned(what, device="cpu"):
+    """A (1, 2, 16, 64) bf16 tensor that breaks one rule of the bf16
+    kernel's layout."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    if what == "pointer":  # data starts 2 bytes into a 16-byte line
+        return zeros(2 * 16 * 64 + 1)[1:].view(1, 2, 16, 64)
+    if what == "seq_stride":  # rows 68 elements apart
+        return zeros(1, 2, 16, 68)[..., :64]
+    return zeros(1, 2, 16, 36)  # head dim 36
+
+
+@pytest.mark.parametrize("what", ["pointer", "seq_stride", "head_dim"])
+def test_check_mma_layout_raises(what):
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash.check_mma_layout({"k": _misaligned(what)})
+
+
+def test_flash_attention_cu_bf16_runs_only_on_tensor_cores():
+    """The bf16 dtype launches flash_fwd_mma, whose products are mma.sync
+    bf16 instructions; the SIMT kernel is instantiated for float alone."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert set(re.findall(r"flash_fwd_simt<(\w+)>", src)) \
+        == {"float"}
+    assert "if (dtype == 1) return launch_mma(p, B, st);" in src
 
 
 def _flipped(n, block, seed):
@@ -222,6 +267,60 @@ def test_flash_attention_kernel_vdim_and_views(cuda, causal, window):
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out, exp, atol=1e-4, rtol=1e-4)
+
+
+# bf16 on tensor cores: products of bf16 inputs summed in f32 (mma.sync),
+# P rounded to bf16 before P V, exp2 with log2(e) folded into the scale,
+# and a bf16 output: within 2e-2 of the f32 plain version.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hk,s,d,dv,causal,window", [
+    (1, 64, 8, 256, 128, 128, True, None),  # Jamba's heads
+    (1, 64, 8, 1000, 128, 128, True, None),  # ragged S
+    (1, 4, 1, 1024, 256, 256, True, 512),  # gemma3-1b's local layers
+    (1, 4, 1, 1024, 256, 256, True, None),  # ... and global ones
+    (2, 2, 1, 200, 40, 24, True, None),  # padded head dims
+    (2, 4, 2, 300, 64, 64, False, 40),  # non-causal with a window
+    (1, 4, 4, 77, 16, 8, True, 5),  # a tile smaller than one of the kernel
+])
+def test_flash_attention_mma_kernel(cuda, b, h, hk, s, d, dv, causal,
+                                    window):
+    q, k, v = (t.to(cuda) for t in _port(
+        _qkv((b, h, s, d), torch.bfloat16, seed=s + d, dv=dv, hk=hk),
+        torch.bfloat16))
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == exp.shape
+    torch.testing.assert_close(out.float(), exp.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,hk,window", [(128, 64, 8, None),
+                                           (256, 4, 1, 512)])
+def test_flash_attention_mma_kernel_model_views(cuda, d, h, hk, window):
+    q, k, v = (t.to(cuda) for t in _bsdh_views(2, 300, h, hk, d,
+                                                torch.bfloat16))
+    out = ops.flash_attention(q, k, v, window=window)
+    exp = ref.flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(out.float(), exp.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["pointer", "seq_stride", "head_dim"])
+def test_flash_attention_mma_kernel_rejects(cuda, what):
+    """A bf16 input that breaks the layout rule raises, with no launch and
+    no other path."""
+    bad = _misaligned(what, cuda)
+    q = torch.zeros(1, 2, 16, bad.shape[-1], dtype=torch.bfloat16,
+                    device=cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.flash_attention(q, bad, q)
+    assert ops.LAUNCHES["flash_attention"] == before
 
 
 @pytest.mark.cuda
