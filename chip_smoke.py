@@ -5,7 +5,8 @@
 
 Phases, one printed line each; any failure raises and exits non-zero:
   device     the card's name and power limit (nvidia-smi)
-  build      nvcc builds every CUDA kernel of src/repro_torch/kernels/csrc
+  build      nvcc builds every CUDA kernel of src/repro_torch/kernels/csrc;
+             registers and spill bytes of each kernel instantiation (ptxas)
   delta_mask the changed-block scan kernel on 256 MiB against its plain
              version and the host scan, exactly; kernel, plain and bound ms
   flash      the flash-attention kernel at the gemma3-1b prefill shapes
@@ -13,8 +14,8 @@ Phases, one printed line each; any failure raises and exits non-zero:
              bf16; ragged S=1000) and at Jamba's (bf16, B=4, H=64, Hk=8,
              S=1024, D=128, global) against its plain version; kernel,
              plain, bound and library (scaled_dot_product_attention) ms;
-             each line names the kernel's path: mma (bf16, tensor cores)
-             or simt (f32, CUDA cores)
+             each line names the kernel's path, mma (bf16) or tf32 (f32 as
+             3xTF32), both on tensor cores, and the rate its bound assumes
   ssm_scan   the selective-scan kernel at the Jamba prefill shape (f32,
              B=4, S=1024, D=16384, N=16) and a ragged one (S=1000,
              D=16376) against its plain version; kernel, plain, bound ms
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -48,7 +50,10 @@ ROOT = Path(__file__).resolve().parent
 PORT = ROOT / "src" / "repro_torch"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; dense
+# Dense tensor-core rates (H100 SXM data sheet): bf16 989 TFLOP/s; f32 work
+# runs as 3xTF32, three TF32 products at 494.7 TFLOP/s for each f32 one
+PEAK_FLOPS = {"float32": 494.7e12 / 3, "bfloat16": 989e12}
+CUDA_CORE_F32_FLOPS = 67e12  # f32 outside the tensor cores, for comparison
 REPS = 20
 SERVE_ARGS = ["--arch", "gemma3-1b", "--batch", "4", "--prompt-len", "1024",
               "--gen", "32", "--snapshot-every", "8", "--seed", "0"]
@@ -83,15 +88,43 @@ def phase_device(torch) -> None:
           f"CUDA {torch.version.cuda}", flush=True)
 
 
+def _kernel_name(mangled: str) -> str:
+    """'_ZN12_GLOBAL__N_13mma14flash_fwd_tf32ILi256ELi32EEEvNS_6ParamsE'
+    -> 'flash_fwd_tf32<256,32>': the innermost name and its integer
+    template arguments."""
+    name, rest = mangled, mangled[3 if mangled.startswith("_ZN") else 2:]
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    if args:
+        name += "<" + ",".join(re.findall(r"-?\d+", args.group(1))) + ">"
+    return name
+
+
+def ptxas_usage(log: str) -> list:
+    """'kernel<args>: N registers, S bytes spill stores, L bytes spill
+    loads' for each kernel instantiation in an ``nvcc -Xptxas -v`` log."""
+    usage, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+        m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            usage.append(f"{name}: {m.group(1)} registers, {spill}")
+    return usage
+
+
 def phase_build(_build) -> None:
     secs = _build.build()
     usage = []
     for name in _build.SOURCES:
         log = _build.library_path(name).with_suffix(".log")
-        text = log.read_text() if log.exists() else ""
-        usage += [f"{name}: {ln.split('ptxas info    :')[-1].strip()}"
-                  for ln in text.splitlines()
-                  if "Used" in ln or "spill" in ln]
+        usage += ptxas_usage(log.read_text() if log.exists() else "")
     print(f"build: {len(_build.SOURCES)} kernels in {secs:.2f}s "
           f"(sm_90a); " + "; ".join(usage), flush=True)
 
@@ -185,12 +218,18 @@ def phase_flash(torch, ops, ref) -> dict:
         t_ops = flops / PEAK_FLOPS[name] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
-        path = "mma" if dtype == torch.bfloat16 else "simt"
+        path = "mma" if dtype == torch.bfloat16 else "tf32"
         label = (f"{name} B={b} H={h} Hk={hk} S={s} D={d} window={window} "
                  f"{path}")
+        rate = f"at {PEAK_FLOPS[name] / 1e12:.1f} TFLOP/s"
+        if dtype == torch.float32:
+            rate += (f" (3xTF32); at the CUDA-core "
+                     f"{CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s "
+                     f"{max(flops / CUDA_CORE_F32_FLOPS * 1e3, t_bytes):.4f}"
+                     f" ms")
         print(f"flash_attention[{label}]: max_abs_err {err:.3e} (tol "
               f"{tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms {rate} "
               f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
         if not ok:
             raise AssertionError(f"flash_attention {label}: max abs err "

@@ -9,7 +9,9 @@
 // flops for 2*S*(D + Dv) elements of input and output: at Jamba's shape
 // (bf16, B=4, H=64, Hk=8, S=1024, D=128) 68.8 GFLOP against 1.5e8 bytes of
 // q, k, v and o, 0.070 ms at the 989 TFLOP/s bf16 tensor-core rate and
-// 0.045 ms at 3.35 TB/s. Two kernels, one for each dtype:
+// 0.045 ms at 3.35 TB/s; at gemma3-1b's global layer (f32, B=4, H=4, Hk=1,
+// S=1024, D=256) 8.6 GFLOP, 0.052 ms at the 3xTF32 rate. Two kernels, one
+// for each dtype:
 //
 // flash_fwd_mma, bf16 (FlashAttention-2 on warp-level tensor cores):
 //   - one block of 4 warps per (batch*head, 64-row query tile), each warp
@@ -39,22 +41,39 @@
 //   Left for wgmma + TMA: warpgroup products from shared memory, TMA loads
 //   with mbarriers, a producer warp, and persistent blocks.
 //
-// flash_fwd_simt, f32 (kept until a 3xTF32 mma.sync path keeps f32 parity):
-//   - same grid and bands; the scaled Q tile and one 64-row K tile and V
-//     tile are staged in shared memory as f32 (213,760 bytes at D = Dv =
-//     256, hence dynamic shared memory and cudaFuncSetAttribute); rows are
-//     padded by one float so the 16x16 thread grid reads them without bank
-//     conflicts;
-//   - each thread owns a 4x4 block of scores and 4 rows x Dv/16 columns of
-//     the f32 accumulator in registers, f32 FMAs on CUDA cores; row max and
-//     row sum are xor shuffles across the 16 threads of a row, so every
-//     thread of a row holds bit-identical m and l;
-//   - online softmax in f32 with the finite -1e30 sentinel, l clamped at
-//     1e-30.
+// flash_fwd_tf32, f32 (the same FlashAttention-2 structure in 3xTF32):
+//   - same grid, bands, softmax and output staging as flash_fwd_mma, but a
+//     block is two groups of 4 warps that share the f32 Q tile: each group
+//     takes every other KV tile of the band into its own f32 K and V tiles
+//     (16-byte cp.async copies, D and Dv multiples of 4, zero-filled to HD;
+//     the next K loads during P V, the next V during the next Q K^T) and
+//     syncs on its own named barrier; at the end group 1 hands m, l and O
+//     to group 0 through shared memory, which merges them. At HD = 256 a
+//     block fills the SM's shared memory (201,728 bytes, 32-key tiles), so
+//     the groups are what puts 8 warps on an SM instead of 4 (64-key tiles at
+//     HD = 64);
+//   - each f32 operand x is split into TF32 values big = rna(x) and small =
+//     rna(x - big), and every product is small*big + big*small, then +
+//     big*big, with mma.sync m16n8k8 tf32 -> f32 (small*small is dropped, as
+//     in CUTLASS's fast-f32 GEMMs): about f32 accuracy, where one TF32 product
+//     on either matmul misses the 1e-4 tolerance; the bound is the TF32
+//     tensor-core rate over 3 (494.7 / 3 TFLOP/s). rna is the rounding of
+//     cvt.rna.tf32.f32 written as an integer add and mask: the splits are
+//     most of the kernel's instructions, and sm_90a expands the cvt into 4;
+//   - ldmatrix moves only b16 elements, so fragments are plain shared loads.
+//     Each product runs over its inner index in an order permuted within
+//     groups of 8 (the fragments' t and t + 4 read 2t and 2t + 1), the same
+//     for both operands: Q and K fragments are then one float2 read each, on
+//     32 banks with rows padded by 8 floats, and P's m16n8 C fragment
+//     (columns 2t, 2t + 1) already is its A fragment, so P stays in registers
+//     without a shuffle; V, read at key 2t and column g, is padded by 4
+//     floats;
+//   - Q is split again on every KV tile: split Q would not fit beside the
+//     K and V tiles at HD = 256.
 // Both read kv head h / (H / Hk) directly instead of a copy (GQA), take any
 // S (the ragged last tile is masked), Dv != D, and strided q, k, v with a
-// unit last dimension; the bf16 kernel also needs 16-byte aligned pointers
-// and row strides, which the wrapper checks.
+// unit last dimension, 16-byte aligned pointers and row strides, which the
+// wrapper checks.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -62,15 +81,7 @@
 
 namespace {
 
-constexpr int kBQ = 64;   // query rows per block
-constexpr int kBK = 64;   // keys per KV tile
-constexpr int kTX = 16;   // threads along keys / value columns
-constexpr int kTY = 16;   // threads along query rows
-constexpr int kThreads = kTX * kTY;
-constexpr int kRows = kBQ / kTY;   // query rows per thread
-constexpr int kKeys = kBK / kTX;   // keys per thread
 constexpr int kMaxD = 256;
-constexpr int kMaxVJ = kMaxD / kTX;  // value columns per thread
 constexpr float kNegInf = -1e30f;
 
 struct Params {
@@ -85,175 +96,6 @@ struct Params {
   int causal;
   int window;  // <= 0: no window
 };
-
-// ---------------------------------------------------------------------------
-// f32: flash_fwd_simt
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-size_t smem_bytes(int D, int Dv) {
-  return sizeof(float) * (static_cast<size_t>(kBQ) * (D + 1) +
-                          static_cast<size_t>(kBK) * (D + 1) +
-                          static_cast<size_t>(kBK) * Dv +
-                          static_cast<size_t>(kBQ) * (kBK + 1));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_simt(Params p) {
-  extern __shared__ float smem[];
-  const int ld = p.D + 1;         // padded row stride of the Q and K tiles
-  const int lp = kBK + 1;         // padded row stride of the P tile
-  float* Qs = smem;               // kBQ x ld
-  float* Ks = Qs + kBQ * ld;      // kBK x ld
-  float* Vs = Ks + kBK * ld;      // kBK x Dv
-  float* Ps = Vs + kBK * p.Dv;    // kBQ x lp
-
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh - b * p.H;
-  const int hk = h / p.group;
-  const int q0 = blockIdx.y * kBQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX;
-  const int ty = tid / kTX;
-  const int S = p.S, D = p.D, Dv = p.Dv;
-
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int qp = q0 + r;
-    Qs[r * ld + d] = qp < S ? to_f32(q[qp * p.q_ss + d]) * p.scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][kMaxVJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxVJ; ++j) acc[i][j] = 0.f;
-  }
-  const int nvj = (Dv + kTX - 1) / kTX;
-
-  // KV tiles that the causal band and the window band reach
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int kv_hi = p.causal ? q_last + 1 : S;
-  const int kv_lo = p.window > 0 ? max(q0 - p.window + 1, 0) : 0;
-  const int t_lo = kv_lo / kBK;
-  const int t_hi = (kv_hi + kBK - 1) / kBK;
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, d = idx - r * D;
-      const int kp = k0 + r;
-      Ks[r * ld + d] = kp < S ? to_f32(k[kp * p.k_ss + d]) : 0.f;
-    }
-    for (int idx = tid; idx < kBK * Dv; idx += kThreads) {
-      const int r = idx / Dv, d = idx - r * Dv;
-      const int kp = k0 + r;
-      Vs[r * Dv + d] = kp < S ? to_f32(v[kp * p.v_ss + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[kRows][kKeys];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kKeys];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty + kTY * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) kv[j] = Ks[(tx + kTX * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + kTY * i;
-      const int qp = q0 + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int kp = k0 + tx + kTX * j;
-        const bool ok = kp < S && (!p.causal || kp <= qp) &&
-                        (p.window <= 0 || qp - kp < p.window);
-        if (!ok) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float pj = expf(s[i][j] - m_new);
-        Ps[r * lp + tx + kTX * j] = pj;
-        sum += pj;
-      }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kMaxVJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();  // the P tile is complete
-
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty + kTY * i) * lp + kk];
-#pragma unroll
-      for (int j = 0; j < kMaxVJ; ++j) {
-        if (j < nvj) {
-          const int c = tx + kTX * j;
-          const float vv = c < Dv ? Vs[kk * Dv + c] : 0.f;
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qp = q0 + ty + kTY * i;
-    if (qp >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < kMaxVJ; ++j) {
-      const int c = tx + kTX * j;
-      if (j < nvj && c < Dv) store(o + qp * p.o_ss + c, acc[i][j] / denom);
-    }
-  }
-}
-
-int launch_simt(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.D, p.Dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_simt<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * p.H, (p.S + kBQ - 1) / kBQ);
-  flash_fwd_simt<float><<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // bf16: flash_fwd_mma
@@ -322,23 +164,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ROWS rows of `cols` (a multiple of 8) bf16 from global rows row0.. of
-// stride ss into a tile of HD + kPad columns; rows >= S and columns >= cols
-// are zero-filled.
-template <int ROWS, int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int row0, int S,
-                                          int cols) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks a row
-  static_assert(ROWS * kChunks % kThreads == 0, "whole rounds of copies");
+// ROWS rows of `cols` (a multiple of 16 bytes) elements from global rows
+// row0.. of stride ss into a tile of HD columns and row stride LD, copied by
+// THREADS threads, of which this is thread tid; rows >= S and columns >=
+// cols are zero-filled.
+template <int ROWS, int HD, int LD = HD + kPad, int THREADS = kThreads,
+          typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss,
+                                          int row0, int S, int cols,
+                                          int tid) {
+  constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte chunk
+  constexpr int kChunks = HD / kVec;    // 16-byte chunks a row
+  static_assert(ROWS * kChunks % THREADS == 0, "whole rounds of copies");
 #pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c / kChunks, col = (c - r * kChunks) * 8;
+  for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / kChunks, col = (c - r * kChunks) * kVec;
     const bool ok = row0 + r < S && col < cols;
-    const __nv_bfloat16* g = ok ? src + (row0 + r) * ss + col : src;
-    cp_async16(saddr(dst + r * (HD + kPad) + col), g, ok);
+    const T* g = ok ? src + (row0 + r) * ss + col : src;
+    cp_async16(saddr(dst + r * LD + col), g, ok);
   }
 }
 
@@ -375,10 +219,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma(Params p) {
   const int t_lo = kv_lo / BK;
   const int t_hi = (kv_hi + BK - 1) / BK;
 
-  load_tile<kBQ, HD>(Qs, q, p.q_ss, q0, S, p.D);
+  load_tile<kBQ, HD>(Qs, q, p.q_ss, q0, S, p.D, threadIdx.x);
   if (t_lo < t_hi) {
-    load_tile<BK, HD>(Ks, k, p.k_ss, t_lo * BK, S, p.D);
-    load_tile<BK, HD>(Vs, v, p.v_ss, t_lo * BK, S, p.Dv);
+    load_tile<BK, HD>(Ks, k, p.k_ss, t_lo * BK, S, p.D, threadIdx.x);
+    load_tile<BK, HD>(Vs, v, p.v_ss, t_lo * BK, S, p.Dv, threadIdx.x);
   }
   cp_async_commit();
 
@@ -412,9 +256,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma(Params p) {
     __syncthreads();  // tile t is in; every warp is done with tile t - 1
     if (t + 1 < t_hi) {
       load_tile<BK, HD>(Ks + (buf ^ 1) * T::kKV, k, p.k_ss, (t + 1) * BK, S,
-                        p.D);
+                        p.D, threadIdx.x);
       load_tile<BK, HD>(Vs + (buf ^ 1) * T::kKV, v, p.v_ss, (t + 1) * BK, S,
-                        p.Dv);
+                        p.Dv, threadIdx.x);
     }
     cp_async_commit();
     const unsigned k_base = saddr(Ks + buf * T::kKV + k_lane);
@@ -544,16 +388,348 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32: flash_fwd_tf32
+// ---------------------------------------------------------------------------
+
+// The f32 kernel runs two groups of 4 warps a block: both own the block's
+// 64 query rows, each takes every other KV tile of the band into its own K
+// and V buffers, and their softmax states are merged at the end. That gives
+// an SM 8 warps, where one 4-warp block fills its shared memory at HD = 256.
+constexpr int kGroups = 2;
+
+// HD: padded head dim (a multiple of 8 covering D and Dv); BK: keys a tile.
+// The padding of a row puts the fragment reads of a warp on 32 banks: Q and
+// K are read as float2 at row g, column 2t (a stride = 8 mod 32 floats), V
+// as float at key 2t, column g (a stride = 4 mod 32).
 template <int HD, int BK>
-int launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = Tile<HD, BK>::kBytes;
+struct TileF32 {
+  static constexpr int kLdQK = HD + 8;
+  static constexpr int kLdV = HD + 4;
+  static constexpr int kQ = kBQ * kLdQK;
+  static constexpr int kK = BK * kLdQK;
+  static constexpr int kV = BK * kLdV;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kQ + kGroups * (kK + kV));
+};
+
+// x to TF32, to nearest with ties away from zero: the rounding of
+// cvt.rna.tf32.f32 for every finite x, in 2 integer instructions where
+// sm_90a expands the cvt into 4 with an infinity test.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// the 3xTF32 split: x = big + small + what TF32 cannot hold of x - big
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = rna_tf32(x);
+  small = rna_tf32(x - __uint_as_float(big));
+}
+
+// c += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma1688(float (&c)[4],
+                                        const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in 3xTF32: small * big + big * small first, then big * big;
+// small * small is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma1688(c, a_small, b_big[0], b_big[1]);
+  mma1688(c, a_big, b_small[0], b_small[1]);
+  mma1688(c, a_big, b_big[0], b_big[1]);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// the 4 warps of one group
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(kThreads)
+               : "memory");
+}
+
+template <int HD, int BK>
+__global__ void __launch_bounds__(kGroups * kThreads)
+    flash_fwd_tf32(Params p) {
+  using T = TileF32<HD, BK>;
+  constexpr int kLdQK = T::kLdQK, kLdV = T::kLdV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  const int group = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads;  // thread in the group
+  float* Ks = Qs + T::kQ + group * (T::kK + T::kV);  // this group's tiles
+  float* Vs = Ks + T::kK;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;  // fragment row and column group
+  const int S = p.S;
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  // KV tiles that the causal band and the window band reach; this group
+  // takes t_lo + group, t_lo + group + 2, ...
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int kv_hi = p.causal ? q_last + 1 : S;
+  const int kv_lo = p.window > 0 ? max(q0 - p.window + 1, 0) : 0;
+  const int t_lo = kv_lo / BK;
+  const int t_hi = (kv_hi + BK - 1) / BK;
+
+  // Copies are committed in pairs, K then V, so that at the top of the
+  // loop this thread has at most K_t and V_t in flight, and waiting for
+  // all but the newest group lands K_t, then (after K_{t+2} is issued) V_t.
+  load_tile<kBQ, HD, kLdQK, kGroups * kThreads>(Qs, q, p.q_ss, q0, S, p.D,
+                                                threadIdx.x);
+  cp_async_commit();
+  const int t0 = t_lo + group;
+  if (t0 < t_hi)
+    load_tile<BK, HD, kLdQK>(Ks, k, p.k_ss, t0 * BK, S, p.D, tid);
+  cp_async_commit();
+  if (t0 < t_hi)
+    load_tile<BK, HD, kLdV>(Vs, v, p.v_ss, t0 * BK, S, p.Dv, tid);
+  cp_async_commit();
+  cp_async_wait_one();
+  __syncthreads();  // Q (copied by both groups) and the first K tiles are in
+
+  // this lane's C-fragment rows: r0 (c0, c1) and r0 + 8 (c2, c3)
+  const int r0 = q0 + warp * 16 + g;
+  const float scale = p.scale * 1.4426950408889634f;  // log2(e) folded in
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this lane's share; the quad's sum at the end
+
+  // Both products run over their inner index (head dims for Q K^T, keys for
+  // P V) in an order permuted within each group of 8: the m16n8k8 fragments'
+  // inner indices t and t + 4 are taken from 2t and 2t + 1. Both operands
+  // share the permutation, so the sums are the same; Q and K fragments are
+  // float2 reads, and P's C fragment (columns 2t, 2t + 1) is its A fragment.
+  const float* q_lane = Qs + (warp * 16 + g) * kLdQK + 2 * tq;
+  const float* k_lane = Ks + g * kLdQK + 2 * tq;
+  const float* v_lane = Vs + 2 * tq * kLdV + g;
+
+  for (int t = t0; t < t_hi; t += kGroups) {
+    cp_async_wait_one();
+    group_sync(group);  // K_t is in
+    const int k0 = t * BK;
+
+    // S = Q K^T: 16 rows x BK keys a warp, n-block j = keys 8j..8j+7; Q is
+    // split again on every tile
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < HD / 8; ++kc) {
+      const float2 qa = *reinterpret_cast<const float2*>(q_lane + kc * 8);
+      const float2 qb =
+          *reinterpret_cast<const float2*>(q_lane + 8 * kLdQK + kc * 8);
+      uint32_t a_big[4], a_small[4];
+      split_tf32(qa.x, a_big[0], a_small[0]);  // row g, index t
+      split_tf32(qb.x, a_big[1], a_small[1]);  // row g + 8, index t
+      split_tf32(qa.y, a_big[2], a_small[2]);  // row g, index t + 4
+      split_tf32(qb.y, a_big[3], a_small[3]);  // row g + 8, index t + 4
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb) {
+        const float2 kb = *reinterpret_cast<const float2*>(
+            k_lane + nb * 8 * kLdQK + kc * 8);
+        uint32_t b_big[2], b_small[2];
+        split_tf32(kb.x, b_big[0], b_small[0]);  // key g, index t
+        split_tf32(kb.y, b_big[1], b_small[1]);  // key g, index t + 4
+        mma_3xtf32(s[nb], a_big, a_small, b_big, b_small);
+      }
+    }
+    group_sync(group);  // every warp of the group is done with K_t
+    if (t + kGroups < t_hi)
+      load_tile<BK, HD, kLdQK>(Ks, k, p.k_ss, (t + kGroups) * BK, S, p.D,
+                               tid);
+    cp_async_commit();
+
+    // scale, then the mask where the tile crosses an edge of the band or S
+    const bool edge = k0 + BK > S || (p.causal && k0 + BK - 1 > q0) ||
+                      (p.window > 0 && q0 + kBQ - 1 - k0 >= p.window);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[j][i] * scale;
+        if (edge) {
+          const int qp = r0 + (i / 2) * 8;
+          const int kp = k0 + j * 8 + tq * 2 + (i % 2);
+          const bool ok = kp < S && (!p.causal || kp <= qp) &&
+                          (p.window <= 0 || qp - kp < p.window);
+          if (!ok) x = kNegInf;
+        }
+        s[j][i] = x;
+      }
+
+    // online softmax, two rows a lane
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = exp2f(m[r] - mx);
+      m[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        s[j][2 * r] = exp2f(s[j][2 * r] - mx);
+        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - mx);
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      l[r] = l[r] * corr[r] + sum;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+
+    cp_async_wait_one();
+    group_sync(group);  // V_t is in
+    // O += P V: the C fragment of keys 8j..8j+7 is the A fragment of the
+    // permuted keys (index t = key 2t, index t + 4 = key 2t + 1)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      uint32_t a_big[4], a_small[4];
+      split_tf32(s[j][0], a_big[0], a_small[0]);  // row g, key 2t
+      split_tf32(s[j][2], a_big[1], a_small[1]);  // row g + 8, key 2t
+      split_tf32(s[j][1], a_big[2], a_small[2]);  // row g, key 2t + 1
+      split_tf32(s[j][3], a_big[3], a_small[3]);  // row g + 8, key 2t + 1
+      const float* vj = v_lane + j * 8 * kLdV;
+#pragma unroll
+      for (int nb = 0; nb < HD / 8; ++nb) {
+        uint32_t b_big[2], b_small[2];
+        split_tf32(vj[nb * 8], b_big[0], b_small[0]);  // key 2t, column g
+        split_tf32(vj[kLdV + nb * 8], b_big[1], b_small[1]);  // key 2t + 1
+        mma_3xtf32(acc[nb], a_big, a_small, b_big, b_small);
+      }
+    }
+    group_sync(group);  // every warp of the group is done with V_t
+    if (t + kGroups < t_hi)
+      load_tile<BK, HD, kLdV>(Vs, v, p.v_ss, (t + kGroups) * BK, S, p.Dv,
+                              tid);
+    cp_async_commit();
+  }
+
+  // Merge: group 1 hands its m, l and O fragments to group 0 through the
+  // K and V buffers (lane-major, so neither side has a bank conflict);
+  // group 0 rescales both to the larger m and adds them.
+  cp_async_wait_all();
+  __syncthreads();
+  constexpr int kX = (HD / 2 + 4) * 32;  // floats a warp hands over
+  float* X = Qs + T::kQ + warp * kX + lane;
+  if (group == 1) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) X[(j * 4 + i) * 32] = acc[j][i];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      X[(HD / 2 + r) * 32] = m[r];
+      X[(HD / 2 + 2 + r) * 32] = l[r];
+    }
+  }
+  __syncthreads();
+  if (group == 1) return;
+  float c0[2], c1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = X[(HD / 2 + r) * 32];
+    const float mx = fmaxf(m[r], m1);
+    c0[r] = exp2f(m[r] - mx);
+    c1[r] = exp2f(m1 - mx);
+    l[r] = l[r] * c0[r] + X[(HD / 2 + 2 + r) * 32] * c1[r];
+  }
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      acc[j][i] = acc[j][i] * c0[i / 2] + X[(j * 4 + i) * 32] * c1[i / 2];
+
+  // normalise, stage the warp's 16 rows in its own rows of the Q tile (only
+  // this warp read them), and store them as 16-byte chunks
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    inv[r] = 1.f / fmaxf(sum, 1e-30f);
+  }
+  float* Ow = Qs + warp * 16 * kLdQK;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(Ow + (g + 8 * r) * kLdQK + j * 8 + 2 * tq) =
+          make_float2(acc[j][2 * r] * inv[r], acc[j][2 * r + 1] * inv[r]);
+  __syncwarp();
+  constexpr int kChunks = HD / 4;
+#pragma unroll
+  for (int i = 0; i < 16 * kChunks / 32; ++i) {
+    const int c = lane + i * 32;
+    const int r = c / kChunks, col = (c - r * kChunks) * 4;
+    const int qp = q0 + warp * 16 + r;
+    if (qp < S && col < p.Dv)
+      *reinterpret_cast<float4*>(o + qp * p.o_ss + col) =
+          *reinterpret_cast<const float4*>(Ow + r * kLdQK + col);
+  }
+}
+
+// One launch of `kernel` with `smem` bytes of dynamic shared memory: a
+// block of `threads` per (batch*head, 64-row query tile).
+int launch(void (*kernel)(Params), int threads, size_t smem, const Params& p,
+           int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<HD, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * p.H, (p.S + kBQ - 1) / kBQ);
-  flash_fwd_mma<HD, BK><<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int BK>
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  return launch(flash_fwd_mma<HD, BK>, kThreads, Tile<HD, BK>::kBytes, p, B,
+                stream);
+}
+
+template <int HD, int BK>
+int launch_f32(const Params& p, int B, cudaStream_t stream) {
+  return launch(flash_fwd_tf32<HD, BK>, kGroups * kThreads,
+                TileF32<HD, BK>::kBytes, p, B, stream);
 }
 
 }  // namespace mma
@@ -561,9 +737,19 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 int launch_mma(const Params& p, int B, cudaStream_t stream) {
   if (p.D % 8 || p.Dv % 8) return static_cast<int>(cudaErrorInvalidValue);
   const int hd = p.D > p.Dv ? p.D : p.Dv;
-  if (hd <= 64) return mma::launch<64, 64>(p, B, stream);
-  if (hd <= 128) return mma::launch<128, 64>(p, B, stream);
-  return mma::launch<256, 32>(p, B, stream);
+  if (hd <= 64) return mma::launch_bf16<64, 64>(p, B, stream);
+  if (hd <= 128) return mma::launch_bf16<128, 64>(p, B, stream);
+  return mma::launch_bf16<256, 32>(p, B, stream);
+}
+
+// f32 tiles: 90,112 bytes of shared memory at HD = 64, 103,424 at 128,
+// 201,728 at 256; 256 threads a block.
+int launch_tf32(const Params& p, int B, cudaStream_t stream) {
+  if (p.D % 4 || p.Dv % 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int hd = p.D > p.Dv ? p.D : p.Dv;
+  if (hd <= 64) return mma::launch_f32<64, 64>(p, B, stream);
+  if (hd <= 128) return mma::launch_f32<128, 32>(p, B, stream);
+  return mma::launch_f32<256, 32>(p, B, stream);
 }
 
 }  // namespace
@@ -574,16 +760,10 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of the f32 kernel (the bf16 kernel's tiles take at
-// most 101,376 bytes).
-long long flash_attention_smem_bytes(int D, int Dv) {
-  return static_cast<long long>(smem_bytes(D, Dv));
-}
-
 // q (B,H,S,D), k (B,Hk,S,D), v (B,Hk,S,Dv), o (B,H,S,Dv), each given by its
-// batch/head/seq strides in elements with a unit last stride.
-// dtype: 0 = float32 (flash_fwd_simt), 1 = bfloat16 (flash_fwd_mma: D and
-// Dv multiples of 8, 16-byte aligned pointers, strides multiples of 8).
+// batch/head/seq strides in elements with a unit last stride; 16-byte
+// aligned pointers, strides and head dims multiples of 16 bytes.
+// dtype: 0 = float32 (flash_fwd_tf32), 1 = bfloat16 (flash_fwd_mma).
 // window <= 0: no window.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int H, int Hk, int S, int D, int Dv,
@@ -599,7 +779,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,   v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, scale, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_simt(p, B, st);
+  if (dtype == 0) return launch_tf32(p, B, st);
   if (dtype == 1) return launch_mma(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

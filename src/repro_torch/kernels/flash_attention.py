@@ -6,9 +6,10 @@ Port of ``repro/kernels/flash_attention.py`` (the Pallas
 window, in (B, H, S, D) layout, ``Dv != D`` allowed. Unlike the Pallas
 wrapper it takes any S (the kernel masks the ragged last tile) and GQA
 inputs (k, v with Hk heads, H % Hk == 0) without expanding them.
-``ops.flash_attention`` dispatches here for CUDA tensors. bfloat16 runs on
-tensor cores (``flash_fwd_mma``), float32 on CUDA cores
-(``flash_fwd_simt``).
+``ops.flash_attention`` dispatches here for CUDA tensors. Both dtypes run
+on tensor cores: bfloat16 in ``flash_fwd_mma``, float32 in
+``flash_fwd_tf32`` (each product as three TF32 products, for f32
+accuracy).
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block can use
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -44,31 +44,34 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def check_mma_layout(tensors: dict) -> None:
-    """The bfloat16 kernel copies 16-byte rows (``cp.async``,
-    ``ldmatrix``): each (B, H, S, D) tensor needs a 16-byte aligned data
-    pointer, batch, head and sequence strides that are multiples of 8
-    elements, and a last dim that is a multiple of 8. Raises ValueError
-    naming what fails; there is no other path for such an input."""
+    """The kernels copy 16-byte rows (``cp.async``): each (B, H, S, D)
+    tensor needs a 16-byte aligned data pointer, batch, head and sequence
+    strides that are multiples of 16 bytes, and a last dim that is a
+    multiple of 16 bytes (8 bfloat16 or 4 float32 elements). Raises
+    ValueError naming what fails; there is no other path for such an
+    input."""
     for name, t in tensors.items():
-        if t.shape[-1] % 8:
-            raise ValueError(f"flash_attention (bfloat16): {name} has head "
-                             f"dim {t.shape[-1]}, not a multiple of 8")
+        n = 16 // t.element_size()
+        what = f"flash_attention ({str(t.dtype).split('.')[-1]})"
+        if t.shape[-1] % n:
+            raise ValueError(f"{what}: {name} has head dim {t.shape[-1]}, "
+                             f"not a multiple of {n}")
         if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention (bfloat16): {name}'s data "
-                             f"pointer is not 16-byte aligned")
-        if any(t.shape[i] > 1 and t.stride(i) % 8 for i in range(3)):
-            raise ValueError(f"flash_attention (bfloat16): {name}'s batch, "
-                             f"head and sequence strides {t.stride()[:3]} "
-                             f"are not all multiples of 8 elements")
+            raise ValueError(f"{what}: {name}'s data pointer is not 16-byte "
+                             f"aligned")
+        if any(t.shape[i] > 1 and t.stride(i) % n for i in range(3)):
+            raise ValueError(f"{what}: {name}'s batch, head and sequence "
+                             f"strides {t.stride()[:3]} are not all "
+                             f"multiples of {n} elements")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window, scale) -> torch.Tensor:
     """Launch the kernel. Inputs may be strided views (for example the
     (B, S, H, D) projections transposed) as long as the last dim is
-    contiguous (bfloat16: see ``check_mma_layout``). Returns (B, H, S, Dv)
-    in ``q.dtype``, laid out in memory as (B, S, H, Dv) so that the
-    caller's transpose back is free."""
+    contiguous and the layout passes ``check_mma_layout``. Returns
+    (B, H, S, Dv) in ``q.dtype``, laid out in memory as (B, S, H, Dv) so
+    that the caller's transpose back is free."""
     b, h, s, d = q.shape
     hk, dv = k.shape[1], v.shape[-1]
     if q.dtype not in _DTYPES:
@@ -81,17 +84,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention wants a contiguous last dim")
     out = torch.empty((b, s, h, dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    if q.dtype == torch.bfloat16:
-        check_mma_layout({"q": q, "k": k, "v": v, "out": out})
+    check_mma_layout({"q": q, "k": k, "v": v, "out": out})
     lib = _build.load("flash_attention")
-    if q.dtype == torch.float32:
-        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
-        smem = lib.flash_attention_smem_bytes(d, dv)
-        if smem > _SMEM_LIMIT:
-            raise ValueError(f"flash_attention: D={d}, Dv={dv} need {smem} "
-                             f"bytes of shared memory, more than "
-                             f"{_SMEM_LIMIT}")
     lib.flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])

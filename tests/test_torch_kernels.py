@@ -11,6 +11,7 @@ they need no JAX, so that they run on a machine with the card:
         tests/test_torch_kernels.py
 """
 import io
+import math
 import re
 import types
 
@@ -116,38 +117,132 @@ def _bsdh_views(b, s, h, hk, d, dtype):
         for n in (h, hk, hk)]
 
 
-@pytest.mark.parametrize("d,h,hk", [(128, 64, 8), (256, 4, 1)])
-def test_check_mma_layout_takes_model_views(d, h, hk):
-    q, k, v = _bsdh_views(2, 24, h, hk, d, torch.bfloat16)
+# Jamba's and gemma3-1b's attention, and gemma3-1b-reduced's (head_dim 16)
+@pytest.mark.parametrize("d,h,hk,dtype", [(128, 64, 8, torch.bfloat16),
+                                          (256, 4, 1, torch.bfloat16),
+                                          (256, 4, 1, torch.float32),
+                                          (16, 4, 1, torch.float32)])
+def test_check_mma_layout_takes_model_views(d, h, hk, dtype):
+    q, k, v = _bsdh_views(2, 24, h, hk, d, dtype)
     flash.check_mma_layout({"q": q, "k": k, "v": v})
 
 
-def _misaligned(what, device="cpu"):
-    """A (1, 2, 16, 64) bf16 tensor that breaks one rule of the bf16
-    kernel's layout."""
+def _misaligned(what, device="cpu", dtype=torch.bfloat16):
+    """A (1, 2, 16, 64) tensor that breaks one rule of the kernels' layout
+    (16-byte rows: 8 bf16 or 4 f32 elements)."""
     def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.bfloat16, device=device)
-    if what == "pointer":  # data starts 2 bytes into a 16-byte line
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if what == "pointer":  # data starts one element into a 16-byte line
         return zeros(2 * 16 * 64 + 1)[1:].view(1, 2, 16, 64)
-    if what == "seq_stride":  # rows 68 elements apart
-        return zeros(1, 2, 16, 68)[..., :64]
-    return zeros(1, 2, 16, 36)  # head dim 36
+    bf16 = dtype == torch.bfloat16
+    if what == "seq_stride":  # rows 68 bf16 (66 f32) elements apart
+        return zeros(1, 2, 16, 68 if bf16 else 66)[..., :64]
+    return zeros(1, 2, 16, 36 if bf16 else 6)  # head dim 36 (6)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("what", ["pointer", "seq_stride", "head_dim"])
-def test_check_mma_layout_raises(what):
-    with pytest.raises(ValueError, match="bfloat16"):
-        flash.check_mma_layout({"k": _misaligned(what)})
+def test_check_mma_layout_raises(what, dtype):
+    with pytest.raises(ValueError, match=str(dtype).split(".")[-1]):
+        flash.check_mma_layout({"k": _misaligned(what, dtype=dtype)})
 
 
-def test_flash_attention_cu_bf16_runs_only_on_tensor_cores():
-    """The bf16 dtype launches flash_fwd_mma, whose products are mma.sync
-    bf16 instructions; the SIMT kernel is instantiated for float alone."""
+def _body(src, head):
+    """The C++ function of ``src`` that starts at ``head``."""
+    start = src.index(head)
+    return src[start:src.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
+    """Each dtype goes to one tensor-core kernel: bf16 to flash_fwd_mma,
+    whose products are mma.sync m16n8k16 bf16; f32 to flash_fwd_tf32, whose
+    products are three mma.sync m16n8k8 tf32 on operands split with the
+    rounding of cvt.rna.tf32.f32. No SIMT kernel and no scalar product is
+    left."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
-    assert set(re.findall(r"flash_fwd_simt<(\w+)>", src)) \
-        == {"float"}
-    assert "if (dtype == 1) return launch_mma(p, B, st);" in src
+    code, entry, launcher, kernel, product = {
+        "bfloat16": (1, "launch_mma", "launch_bf16", "flash_fwd_mma",
+                     "mma16816"),
+        "float32": (0, "launch_tf32", "launch_f32", "flash_fwd_tf32",
+                    "mma_3xtf32")}[dtype]
+    assert f"if (dtype == {code}) return {entry}(p, B, st);" in src
+    assert set(re.findall(r"mma::(launch_\w+)<",
+                          _body(src, f"int {entry}("))) == {launcher}
+    assert re.findall(r"launch\((flash_fwd_\w+)<",
+                      _body(src, f"int {launcher}(")) == [kernel]
+    assert f"{product}(" in _body(src, f"{kernel}(Params p) {{")
+    if dtype == "bfloat16":
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" \
+            in _body(src, "void mma16816(")
+    else:
+        assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" \
+            in _body(src, "void mma1688(")
+        assert _body(src, "void mma_3xtf32(").count("mma1688(") == 3
+        # both parts rounded as _tf32 below (and cvt.rna.tf32.f32) round
+        assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" \
+            in _body(src, "uint32_t rna_tf32(")
+        assert _body(src, "void split_tf32(").count("rna_tf32(") == 2
+        assert "split_tf32(" in _body(src, f"{kernel}(Params p) {{")
+    assert "flash_fwd_simt" not in src and "fmaf(" not in src
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as cvt.rna.tf32.f32: add half the weight of the 13 dropped bits
+    to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, how):
+    """a @ b as the tensor cores compute it from f32 operands: "f32" as
+    is, "tf32" one product of the rounded operands, "3xtf32" the split
+    x = big + small: small*big + big*small, then + big*big."""
+    if how == "f32":
+        return a @ b
+    a_big, b_big = _tf32(a), _tf32(b)
+    if how == "tf32":
+        return a_big @ b_big
+    return (_tf32(a - a_big) @ b_big + a_big @ _tf32(b - b_big)) \
+        + a_big @ b_big
+
+
+def _emulated_flash(q, k, v, window, qk, pv):
+    """flash_fwd_tf32's arithmetic over the whole row at once: S = Q K^T
+    by ``qk``, the log2(e)-folded scale, the -1e30 mask, exp2, then P V by
+    ``pv`` over the unnormalised P, divided by l."""
+    h, s, d = q.shape[1:]
+    k, v = (t.repeat_interleave(h // t.shape[1], dim=1) for t in (k, v))
+    x = _product(q, k.transpose(-1, -2), qk) * (
+        1.0 / math.sqrt(d) * math.log2(math.e))
+    i = torch.arange(s)
+    mask = i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[:, None] - i[None, :] < window
+    x = torch.where(mask, x, torch.full_like(x, ref.NEG_INF))
+    p = torch.exp2(x - x.amax(dim=-1, keepdim=True))
+    return _product(p, v, pv) / p.sum(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_3xtf32_split_keeps_f32_parity(window):
+    """Why the f32 kernel splits both products into three TF32 products.
+    At gemma3-1b's heads (H=4, Hk=1, D=256), B=2, S=256, the emulated split
+    is 1.91e-06 from the f32 plain version (window None or 64); one TF32
+    product on Q K^T alone is 8.17e-04 from it, on P V alone 9.35e-04:
+    outside the 1e-4 that the card's f32 tests and chip_smoke.py hold the
+    kernel to."""
+    q, k, v = _port(_qkv((2, 4, 256, 256), torch.float32, seed=256, hk=1),
+                    torch.float32)
+    exp = ref.flash_attention_ref(q, k, v, window=window)
+
+    def err(qk, pv):
+        out = _emulated_flash(q, k, v, window, qk, pv)
+        return (out - exp).abs().max().item()
+    assert err("3xtf32", "3xtf32") < 1e-4
+    assert err("tf32", "f32") > 1e-4
+    assert err("f32", "tf32") > 1e-4
 
 
 def _flipped(n, block, seed):
@@ -269,11 +364,7 @@ def test_flash_attention_kernel_vdim_and_views(cuda, causal, window):
     torch.testing.assert_close(out, exp, atol=1e-4, rtol=1e-4)
 
 
-# bf16 on tensor cores: products of bf16 inputs summed in f32 (mma.sync),
-# P rounded to bf16 before P V, exp2 with log2(e) folded into the scale,
-# and a bf16 output: within 2e-2 of the f32 plain version.
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,hk,s,d,dv,causal,window", [
+_MMA_CASES = pytest.mark.parametrize("b,h,hk,s,d,dv,causal,window", [
     (1, 64, 8, 256, 128, 128, True, None),  # Jamba's heads
     (1, 64, 8, 1000, 128, 128, True, None),  # ragged S
     (1, 4, 1, 1024, 256, 256, True, 512),  # gemma3-1b's local layers
@@ -282,6 +373,13 @@ def test_flash_attention_kernel_vdim_and_views(cuda, causal, window):
     (2, 4, 2, 300, 64, 64, False, 40),  # non-causal with a window
     (1, 4, 4, 77, 16, 8, True, 5),  # a tile smaller than one of the kernel
 ])
+
+
+# bf16 on tensor cores: products of bf16 inputs summed in f32 (mma.sync),
+# P rounded to bf16 before P V, exp2 with log2(e) folded into the scale,
+# and a bf16 output: within 2e-2 of the f32 plain version.
+@pytest.mark.cuda
+@_MMA_CASES
 def test_flash_attention_mma_kernel(cuda, b, h, hk, s, d, dv, causal,
                                     window):
     q, k, v = (t.to(cuda) for t in _port(
@@ -297,28 +395,53 @@ def test_flash_attention_mma_kernel(cuda, b, h, hk, s, d, dv, causal,
                                rtol=2e-2)
 
 
+# f32 on tensor cores as 3xTF32 (flash_fwd_tf32): each product split
+# into three TF32 products summed in f32, exp2 with log2(e) folded into the
+# scale: within the same 1e-4 as the other f32 tests (the CPU emulation in
+# test_flash_attention_3xtf32_split_keeps_f32_parity gives ~2e-6).
 @pytest.mark.cuda
+@_MMA_CASES
+def test_flash_attention_tf32_kernel(cuda, b, h, hk, s, d, dv, causal,
+                                     window):
+    q, k, v = (t.to(cuda) for t in _port(
+        _qkv((b, h, s, d), torch.float32, seed=s + d, dv=dv, hk=hk),
+        torch.float32))
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == exp.shape
+    torch.testing.assert_close(out, exp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
 @pytest.mark.parametrize("d,h,hk,window", [(128, 64, 8, None),
-                                           (256, 4, 1, 512)])
-def test_flash_attention_mma_kernel_model_views(cuda, d, h, hk, window):
-    q, k, v = (t.to(cuda) for t in _bsdh_views(2, 300, h, hk, d,
-                                                torch.bfloat16))
+                                           (256, 4, 1, 512),
+                                           (16, 4, 1, 32)])
+def test_flash_attention_mma_kernel_model_views(cuda, d, h, hk, window,
+                                                dtype, tol):
+    q, k, v = (t.to(cuda) for t in _bsdh_views(2, 300, h, hk, d, dtype))
+    before = ops.LAUNCHES["flash_attention"]
     out = ops.flash_attention(q, k, v, window=window)
     exp = ref.flash_attention_ref(q, k, v, window=window)
-    torch.testing.assert_close(out.float(), exp.float(), atol=2e-2,
-                               rtol=2e-2)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("what", ["pointer", "seq_stride", "head_dim"])
-def test_flash_attention_mma_kernel_rejects(cuda, what):
-    """A bf16 input that breaks the layout rule raises, with no launch and
-    no other path."""
-    bad = _misaligned(what, cuda)
-    q = torch.zeros(1, 2, 16, bad.shape[-1], dtype=torch.bfloat16,
-                    device=cuda)
+def test_flash_attention_mma_kernel_rejects(cuda, what, dtype):
+    """An input that breaks the layout rule raises, with no launch and no
+    other path."""
+    bad = _misaligned(what, cuda, dtype)
+    q = torch.zeros(1, 2, 16, bad.shape[-1], dtype=dtype, device=cuda)
     before = ops.LAUNCHES["flash_attention"]
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match=str(dtype).split(".")[-1]):
         ops.flash_attention(q, bad, q)
     assert ops.LAUNCHES["flash_attention"] == before
 
