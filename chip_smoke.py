@@ -19,8 +19,14 @@ Phases, one printed line each; any failure raises and exits non-zero:
   ssm_scan   the selective-scan kernel at the Jamba prefill shape (f32,
              B=4, S=1024, D=16384, N=16) and a ragged one (S=1000,
              D=16376) against its plain version; kernel, plain, bound ms
+  flash_bwd  the flash-attention backward kernel at gemma3-1b's train
+             shapes (f32, B=4, H=4, Hk=1, S=1024, D=256; window 512 and
+             none; ragged S=1000) against its plain version; two launches
+             bit-equal; kernel, plain, bound and library (the backward of
+             scaled_dot_product_attention) ms
   reference  gemma3-1b-reduced and jamba-1.5-large-398b-reduced prefill +
-             decode on the card against the same weights on the CPU, f32
+             decode on the card against the same weights on the CPU, f32;
+             gemma3-1b-reduced's train loss and gradients likewise
   serve      full-width gemma3-1b (f32) through repro_torch.launch.serve:
              batch 4, prompt 1024, 32 tokens, a delta snapshot every 8, a
              node kill and failover at 20; tokens and final logits equal to
@@ -30,15 +36,29 @@ Phases, one printed line each; any failure raises and exits non-zero:
              superblock at full width, in bf16 (Mamba + dense, Mamba + MoE,
              Mamba + dense, attention + MoE: 23.0e9 parameters);
              ssm_scan, flash_attention and delta_mask launched on that path
+  train      full-width gemma3-1b (f32, the 262,144 vocabulary) cut to its
+             first superblock (6 layers, 5 local + 1 global) through
+             repro_torch.launch.train: batch 4, seq 1024, 8 steps, a delta
+             checkpoint of the train state every 3, a node kill after step
+             7, a restore from the replica; losses from the resumed step on
+             and the final parameters' CRC equal to an uninterrupted run
+             without checkpoints; delta_mask, flash_attention and
+             flash_attention_bwd launched on that path; then 2 steps of the
+             whole 26-layer model. It runs in a child process with
+             CUBLAS_WORKSPACE_CONFIG set, which the deterministic train
+             step needs and which would slow the serve phases' decode
 Then one JSON line with every kernel's numbers (launches summed over the
-two serve runs with a node kill; flash_attention's entry is gemma3-1b's
-f32 case, with every case under "cases"), and the last line {"ok": true,
+runs with a node kill: two serve runs and one train run; flash_attention's
+entry is gemma3-1b's f32 case, flash_attention_bwd's its window-512 train
+case, each with every case under "cases"), and the last line {"ok": true,
 "device": {...}}. Times are CUDA-event medians of 20 runs.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -55,11 +75,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 494.7e12 / 3, "bfloat16": 989e12}
 CUDA_CORE_F32_FLOPS = 67e12  # f32 outside the tensor cores, for comparison
 REPS = 20
+BWD_TOL = 1e-4  # flash_attention_bwd: of each gradient's largest element
 SERVE_ARGS = ["--arch", "gemma3-1b", "--batch", "4", "--prompt-len", "1024",
               "--gen", "32", "--snapshot-every", "8", "--seed", "0"]
 JAMBA_ARGS = ["--batch", "4", "--prompt-len", "1024", "--gen", "32",
               "--snapshot-every", "8", "--seed", "0", "--dtype", "bfloat16"]
 JAMBA_LAYERS = 4  # of the 8-layer superblock: one superblock is 90.5 GB
+TRAIN_ARGS = ["--batch", "4", "--seq", "1024", "--lr", "1e-3"]
 
 
 def time_ms(torch, fn) -> float:
@@ -252,6 +274,88 @@ def phase_flash(torch, ops, ref) -> dict:
     return main
 
 
+def phase_flash_bwd(torch, ops, ref, flash) -> dict:
+    """The backward kernel at gemma3-1b's train shapes (f32): local layers
+    (window 512), the global layer, and a ragged S. Its bound counts the
+    five products (Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over the pairs the
+    band holds."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    b, h, hk, d = 4, 4, 1, 256
+    results = {}
+    for s, window in ((1024, 512), (1024, None), (1000, 512)):
+        gen = torch.Generator(device=dev).manual_seed(7 * s + (window or 0))
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((b, h, s, d), (b, hk, s, d), (b, hk, s, d)))
+        dout = torch.randn((b, h, s, d), generator=gen, device=dev)
+        out = ops.flash_attention(q, k, v, window=window)
+
+        def kernel():
+            return flash.flash_attention_bwd_cuda(
+                q, k, v, out, dout, causal=True, window=window, scale=None)
+        got, again = kernel(), kernel()
+        exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, window=window)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd S={s} window={window}"
+                                 ": two launches differ")
+        # f32 sums of up to H/Hk*S terms in another order than the plain
+        # version's: within 1e-4 of each gradient's largest element
+        err, ok = 0.0, True
+        for x, e in zip(got, exp):
+            scale = e.abs().max().item()
+            e_x = (x - e).abs().max().item()
+            err = max(err, e_x)
+            ok &= x.shape == e.shape and bool(torch.isfinite(x).all()) \
+                and e_x <= BWD_TOL * scale
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, dout, window=window))
+        qr, kr, vr = (t.repeat_interleave(h // t.shape[1], dim=1).detach()
+                      .requires_grad_() for t in (q, k, v))
+        i = torch.arange(s, device=dev)
+        allowed = i[None, :] <= i[:, None]
+        if window is not None:
+            allowed &= i[:, None] - i[None, :] < window
+        o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=allowed)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qr, kr, vr), dout, retain_graph=True))
+        pairs = sum(min(r + 1, window or s) for r in range(s))
+        flops = b * h * pairs * 2 * (3 * d + 2 * d)
+        nbytes = 4 * (2 * b * h * s * d + 2 * b * hk * s * 2 * d
+                      + 2 * b * h * s * d)  # q, dq; k, v, dk, dv; o, dO
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        t_core = flops / CUDA_CORE_F32_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        label = f"f32 B={b} H={h} Hk={hk} S={s} D={d} window={window}"
+        print(f"flash_attention_bwd[{label}]: max_abs_err {err:.3e} (tol "
+              f"{BWD_TOL:g} of each gradient's max); two launches bit-equal; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+              f"{library_ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms at "
+              f"{PEAK_FLOPS['float32'] / 1e12:.1f} TFLOP/s (3xTF32), "
+              f"{max(t_core, t_bytes):.4f} ms at the CUDA-core "
+              f"{CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s, bytes "
+              f"{t_bytes:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd {label}: max abs err "
+                                 f"{err}")
+        results[(s, window)] = {
+            "label": label, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+        del q, k, v, dout, out, got, again, exp, qr, kr, vr, o_lib
+        torch.cuda.empty_cache()
+    main = dict(results[(1024, 512)])  # the local layers, 5 of 6
+    del main["label"]
+    main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
+    main["cases"] = [{key: r[key] for key in (
+        "label", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+        for r in results.values()]
+    return main
+
+
 def phase_ssm(torch, ops, ref) -> dict:
     """The scan at the Jamba prefill shape, then a ragged S and D (16376 is
     not a multiple of the kernel's 16 d's a block). Decays are
@@ -328,6 +432,41 @@ def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
           f"max abs logit diff {worst:.3e} (tol 1e-4)", flush=True)
 
 
+def phase_train_reference(torch, Model, RunConfig, get_config,
+                          tree_to_torch, tree_leaves) -> None:
+    """gemma3-1b-reduced's train loss and every gradient on the card
+    (flash forward and backward kernels) against the same weights and batch
+    on the CPU (plain versions), f32: S = 100 in 64-token loss chunks."""
+    cfg = get_config("gemma3-1b-reduced")
+    rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
+                   loss_chunk=64)
+    cpu, dev = Model(cfg, rc, "cpu"), Model(cfg, rc, "cuda")
+    params = {"cpu": cpu.init(0)}
+    params["cuda"] = tree_to_torch(params["cpu"], "cuda")
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 101), generator=gen)
+    out = {}
+    for where, model in (("cpu", cpu), ("cuda", dev)):
+        leaves = tree_leaves(params[where])
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = model.loss(params[where], {
+            "tokens": toks[:, :-1].to(model.device),
+            "labels": toks[:, 1:].to(model.device)})
+        out[where] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
+            loss, leaves)])
+    worst = 0.0
+    for g_cpu, g_dev in zip(out["cpu"][1], out["cuda"][1]):
+        err = (g_dev - g_cpu).abs().max().item()
+        worst = max(worst, err / max(g_cpu.abs().max().item(), 1e-30))
+    loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    print(f"reference: gemma3-1b-reduced train loss 2x100, card vs CPU "
+          f"relative loss diff {loss_err:.3e}, worst gradient diff "
+          f"{worst:.3e} of its leaf's max (tol 1e-4)", flush=True)
+    if loss_err > 1e-5 or worst > 1e-4:
+        raise AssertionError("reference train: card and CPU differ")
+
+
 def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
     """Serve ``cfg`` with a node kill at 20, then uninterrupted, then
     without snapshots; the kernels in ``needs`` must launch on the first
@@ -371,7 +510,85 @@ def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
     return counts
 
 
-def main() -> int:
+def phase_train(torch, train, launches, gemma, Stage) -> dict:
+    """Train gemma3-1b's first superblock at full width with a node kill
+    after step 7 (checkpoints after steps 2 and 5; resume at 6), then
+    uninterrupted without checkpoints: the losses from the resumed step on
+    and the final parameters must be bit-equal. Then 2 steps of the whole
+    model. Returns the kill run's kernel launches."""
+    cut = dataclasses.replace(gemma, stages=(
+        Stage(block=gemma.stages[0].block, repeat=1),))
+    for k in launches:
+        launches[k] = 0
+    losses, stats = train.main(TRAIN_ARGS + [
+        "--steps", "8", "--ckpt-every", "3", "--inject-failure", "7"],
+        cfg=cut)
+    counts = dict(launches)
+    torch.cuda.empty_cache()
+    ref, ref_stats = train.main(TRAIN_ARGS + ["--steps", "8",
+                                              "--ckpt-every", "0"], cfg=cut)
+    torch.cuda.empty_cache()
+    label = "train gemma3-1b 6 layers f32"
+    if not all(map(math.isfinite, losses + ref)):
+        raise AssertionError(f"{label}: non-finite losses {losses}, {ref}")
+    # a random init with tied 0.02-scaled embeddings starts at ~ln(vocab)
+    if abs(losses[0] - math.log(gemma.vocab_size)) > 0.5:
+        raise AssertionError(f"{label}: first loss {losses[0]}")
+    if not (len(losses) == 9 and losses[:7] == ref[:7]
+            and losses[7:] == ref[6:]
+            and stats["params_crc"] == ref_stats["params_crc"]):
+        raise AssertionError(f"{label}: the resumed run differs from the "
+                             f"uninterrupted one: {losses} vs {ref}, crc "
+                             f"{stats['params_crc']} vs "
+                             f"{ref_stats['params_crc']}")
+    needs = ("delta_mask", "flash_attention", "flash_attention_bwd")
+    if min(counts[k] for k in needs) <= 0 or counts != stats["launches"]:
+        raise AssertionError(f"{label}: kernel launches {counts}")
+    full, full_stats = train.main(TRAIN_ARGS + [
+        "--arch", "gemma3-1b", "--steps", "2", "--ckpt-every", "0"])
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, full)):
+        raise AssertionError(f"train gemma3-1b 26 layers: losses {full}")
+    print(f"{label}: batch 4, seq 1024, 8 steps (+2 re-run after the "
+          f"failover); step {stats['step_ms']:.1f} ms; {stats['saves']} "
+          f"checkpoints {stats['ckpt_s']:.3f} s, of which delta scans "
+          f"{stats['scan_s']:.3f} s; failover {stats['failover_s']:.3f} s; "
+          f"bytes_logged/bytes_full {stats['bytes_logged']}/"
+          f"{stats['bytes_full']} = "
+          f"{stats['bytes_logged'] / stats['bytes_full']:.4f}; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; uninterrupted step "
+          f"{ref_stats['step_ms']:.1f} ms; peak memory "
+          f"{stats['peak_bytes']} bytes ({stats['peak_bytes'] / 1e9:.2f} "
+          f"GB); losses from step 6 and final params CRC equal; launches "
+          f"{counts}", flush=True)
+    print(f"train gemma3-1b 26 layers f32: batch 4, seq 1024, 2 steps; step "
+          f"{full_stats['step_ms']:.1f} ms; loss {full[0]:.4f} -> "
+          f"{full[-1]:.4f}; peak memory {full_stats['peak_bytes']} bytes "
+          f"({full_stats['peak_bytes'] / 1e9:.2f} GB); launches "
+          f"{full_stats['launches']}", flush=True)
+    return counts
+
+
+def run_train_phase(torch) -> dict:
+    """``phase_train`` in a process of its own, which this one waits for:
+    its deterministic train step needs ``CUBLAS_WORKSPACE_CONFIG`` before
+    the process's first cuBLAS call, and here that setting would also slow
+    the serve phases' decode (``tools/serve_ab.py``). Echoes its lines and
+    returns its kernel launches."""
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, __file__, "--train-phase"],
+                          env=env, stdout=subprocess.PIPE, text=True,
+                          timeout=1000)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0:
+        print("\n".join(lines), flush=True)
+        raise RuntimeError(f"train phase: exit code {proc.returncode}")
+    print("\n".join(lines[:-1]), flush=True)
+    return json.loads(lines[-1])
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -389,19 +606,28 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import Stage
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.launch import serve
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch import serve, train
     from repro_torch.models.transformer import Model, RunConfig
-    from repro_torch.weights import tree_to_torch
+    from repro_torch.weights import tree_leaves, tree_to_torch
 
+    if argv == ["--train-phase"]:  # run_train_phase's process
+        print(json.dumps(phase_train(torch, train, ops.LAUNCHES,
+                                     get_config("gemma3-1b"), Stage)))
+        return 0
     t0 = time.time()
     phase_device(torch)
     phase_build(_build)
     kernels = {"delta_mask": phase_delta(torch, ops, ref, changed_blocks),
                "flash_attention": phase_flash(torch, ops, ref),
-               "ssm_scan": phase_ssm(torch, ops, ref)}
+               "ssm_scan": phase_ssm(torch, ops, ref),
+               "flash_attention_bwd": phase_flash_bwd(torch, ops, ref,
+                                                      flash)}
     for arch in ("gemma3-1b-reduced", "jamba-1.5-large-398b-reduced"):
         phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
                         arch)
+    phase_train_reference(torch, Model, RunConfig, get_config, tree_to_torch,
+                          tree_leaves)
     counts = phase_serve(torch, serve, ops.LAUNCHES, "serve gemma3-1b f32",
                          SERVE_ARGS, ("delta_mask", "flash_attention"),
                          get_config("gemma3-1b"))
@@ -410,15 +636,24 @@ def main() -> int:
         Stage(block=jamba.stages[0].block[:JAMBA_LAYERS], repeat=1),))
     jcounts = phase_serve(torch, serve, ops.LAUNCHES,
                           f"serve jamba-1.5-large {JAMBA_LAYERS} layers bf16",
-                          JAMBA_ARGS, tuple(kernels), cut)
-    counts = {k: counts[k] + jcounts[k] for k in counts}
+                          JAMBA_ARGS, ("delta_mask", "flash_attention",
+                                       "ssm_scan"), cut)
+    tcounts = run_train_phase(torch)
+    counts = {k: counts[k] + jcounts[k] + tcounts[k] for k in counts}
     where = {"delta_mask": ("src/repro_torch/kernels/csrc/delta_mask.cu",
                             "src/repro/kernels/delta_encode.py:37"),
              "flash_attention": (
                  "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:89"),
              "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
-                          "src/repro/kernels/ssm_scan.py:66")}
+                          "src/repro/kernels/ssm_scan.py:66"),
+             # no Pallas backward: jax.value_and_grad differentiates the jnp
+             # attention (src/repro/models/attention.py, chunked) there
+             "flash_attention_bwd": (
+                 "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 "src/repro/launch/train.py:36 (jax.value_and_grad of the "
+                 "jnp chunked attention; the JAX package has no backward "
+                 "kernel)")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": where[name][0],
          "replaces": where[name][1], "launches": counts[name], **res}
@@ -432,4 +667,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -44,6 +44,7 @@ from repro_torch import device as device_mod
 from repro_torch.ckpt.delta import changed_blocks, changed_extents
 from repro_torch.core.store import LibState
 from repro_torch.kernels.ops import delta_mask
+from repro_torch.weights import leaf_to_tensor
 
 _KERNEL_BPT = 8
 
@@ -264,7 +265,9 @@ class AssiseCheckpointer:
 
 def unflatten_into(template: Any, flat: Dict[str, np.ndarray],
                    prefix: str = ""):
-    """Rebuild a pytree shaped like `template` from restore() output."""
+    """Rebuild a pytree shaped like `template` from restore() output. A
+    tensor leaf of the template comes back as a tensor of its dtype on its
+    device; any other leaf as the restored numpy array."""
     if isinstance(template, dict):
         return {k: unflatten_into(v, flat, f"{prefix}/{k}")
                 for k, v in template.items()}
@@ -272,4 +275,11 @@ def unflatten_into(template: Any, flat: Dict[str, np.ndarray],
         t = [unflatten_into(v, flat, f"{prefix}/{i}")
              for i, v in enumerate(template)]
         return type(template)(t) if isinstance(template, tuple) else t
+    if isinstance(template, torch.Tensor):
+        out = leaf_to_tensor(flat[prefix], template.device)
+        if out.dtype != template.dtype or out.shape != template.shape:
+            raise ValueError(f"{prefix}: restored {out.dtype} "
+                             f"{tuple(out.shape)}, template {template.dtype} "
+                             f"{tuple(template.shape)}")
+        return out
     return flat[prefix]

@@ -18,3 +18,10 @@ def resolve(device: Union[str, torch.device] = "cuda") -> torch.device:
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' (--device cpu) to run on the CPU")
     return dev
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the card's queued work, so a host clock reads it; a no-op
+    on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("delta_mask", "flash_attention", "ssm_scan")
+SOURCES = ("delta_mask", "flash_attention", "flash_attention_bwd",
+           "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,5 @@
-"""Flash-attention forward on the card: the wrapper of
-``csrc/flash_attention.cu``.
+"""Flash attention on the card: the wrappers of ``csrc/flash_attention.cu``
+(forward) and ``csrc/flash_attention_bwd.cu`` (backward, float32).
 
 Port of ``repro/kernels/flash_attention.py`` (the Pallas
 ``flash_attention``): causal softmax attention with an optional sliding
@@ -9,7 +9,8 @@ inputs (k, v with Hk heads, H % Hk == 0) without expanding them.
 ``ops.flash_attention`` dispatches here for CUDA tensors. Both dtypes run
 on tensor cores: bfloat16 in ``flash_fwd_mma``, float32 in
 ``flash_fwd_tf32`` (each product as three TF32 products, for f32
-accuracy).
+accuracy). The backward (``flash_attention_bwd_cuda``) is the gradient
+that the JAX package leaves to autodiff; it runs in float32.
 """
 from __future__ import annotations
 
@@ -100,3 +101,65 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, err, "flash_attention launch")
     _build.LAUNCHES["flash_attention"] += 1
     return out
+
+
+def _like_bshd(t: torch.Tensor) -> torch.Tensor:
+    """An empty (B, H, S, D) tensor laid out in memory as (B, S, H, D), as
+    the model's transposed projections are, so that the gradient's
+    transpose back is free."""
+    b, h, s, d = t.shape
+    return torch.empty((b, s, h, d), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool, window,
+                             scale):
+    """Launch ``csrc/flash_attention_bwd.cu``: the gradient of the forward
+    that gave ``out`` for the incoming gradient ``dout`` (both
+    (B, H, S, Dv)). Returns (dq, dk, dv) shaped as q, k and v. float32
+    only; every input may be a strided view with a contiguous last dim."""
+    check_args(q, k, v)
+    b, h, s, d = q.shape
+    hk, dv_dim = k.shape[1], v.shape[-1]
+    tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout}
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"flash_attention_bwd on the card takes float32 "
+                             f"only, got {name} in {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} on {t.device}, "
+                             f"q on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd wants a contiguous last "
+                             f"dim, {name} has strides {t.stride()}")
+    if out.shape != (b, h, s, dv_dim) or dout.shape != out.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)}, want "
+                         f"{(b, h, s, dv_dim)}")
+    if d > MAX_HEAD_DIM or dv_dim > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd on the card takes head dims "
+                         f"up to {MAX_HEAD_DIM}, got D={d}, Dv={dv_dim}")
+    dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_longlong * 24)(*[
+        t.stride(i) for t in (q, k, v, out, dout, dq, dk, dv)
+        for i in range(3)])
+    lib = _build.load("flash_attention_bwd")
+    lib.flash_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+           ctypes.c_int, ctypes.c_void_p])
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_bwd(
+        *(t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv, lse,
+                                 delta)),
+        b, h, hk, s, d, dv_dim, strides, float(scale), int(causal),
+        int(window or 0), stream)
+    _build.check(lib, err, "flash_attention_bwd launch")
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

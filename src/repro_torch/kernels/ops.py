@@ -3,7 +3,9 @@
 A CPU tensor goes to the plain PyTorch version in ``ref.py``; a CUDA
 tensor goes to the hand-written kernel, which either launches or raises.
 There is no fallback from the card to the plain version. ``LAUNCHES``
-counts the kernel launches per kernel.
+counts the kernel launches per kernel. ``flash_attention`` is
+differentiable: where a gradient is wanted, its backward runs
+``flash_attention_bwd_ref`` on the CPU and the backward kernel on the card.
 """
 from __future__ import annotations
 
@@ -26,18 +28,52 @@ def _route(t: torch.Tensor, name: str) -> str:
     return t.device.type
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    scale=None):
-    """q: (B, H, S, D), k: (B, Hk, S, D), v: (B, Hk, S, Dv) -> (B, H, S, Dv)
-    in ``q.dtype``. H % Hk == 0; query head h reads kv head h // (H/Hk)."""
-    _flash.check_args(q, k, v)
-    if window is not None and window <= 0:
-        raise ValueError(f"flash_attention: window {window} must be positive")
+def _flash_forward(q, k, v, causal, window, scale):
     if _route(q, "flash_attention") == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
     return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                        scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward and backward of ``flash_attention``, each dispatched by
+    device: the plain versions on the CPU, the kernels on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out = _flash_forward(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = dict(causal=causal, window=window, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if _route(q, "flash_attention") == "cpu":
+            grads = ref.flash_attention_bwd_ref(q, k, v, out, dout,
+                                                **ctx.args)
+        else:
+            if dout.stride(-1) != 1:
+                dout = dout.contiguous()
+            grads = _flash.flash_attention_bwd_cuda(q, k, v, out, dout,
+                                                    **ctx.args)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    scale=None):
+    """q: (B, H, S, D), k: (B, Hk, S, D), v: (B, Hk, S, Dv) -> (B, H, S, Dv)
+    in ``q.dtype``. H % Hk == 0; query head h reads kv head h // (H/Hk).
+    Differentiable in q, k and v; without a gradient (serving) it runs the
+    forward alone and keeps nothing for a backward."""
+    _flash.check_args(q, k, v)
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window {window} must be positive")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _flash_forward(q, k, v, causal, window, scale)
 
 
 def ssm_scan(decay, u, c, state0):

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the kernels (the correctness yardstick).
 
 Twins of ``repro/kernels/ref.py``: each is the mathematical definition,
-written for clarity, not speed. The CPU tests run them, and
-``chip_smoke.py`` holds each CUDA kernel against them on the card. On the
-main path they run only for tensors that lie on the CPU.
+written for clarity, not speed; ``flash_attention_bwd_ref`` is the
+gradient of ``flash_attention_ref``, which the JAX package leaves to
+autodiff. The CPU tests run them, and ``chip_smoke.py`` holds each CUDA
+kernel against them on the card. On the main path they run only for
+tensors that lie on the CPU.
 """
 from __future__ import annotations
 
@@ -35,6 +37,42 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
+                            window=None, scale=None):
+    """The gradient of ``flash_attention_ref``, as explicit formulas in f32:
+    P recomputed with the ``-1e30`` mask, ``dV = Pᵀ dO``,
+    ``dS = P ∘ (dO Vᵀ − rowsum(dO ∘ O))``, ``dQ = dS K scale``,
+    ``dK = dSᵀ Q scale``. ``out`` is the forward's output. Each kv head's
+    dK and dV sum over its group of query heads. Returns (dq, dk, dv) in
+    the dtypes of q, k and v."""
+    b, h, s, d = q.shape
+    hk = k.shape[1]
+    g = h // hk
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qf, dof = q.float(), dout.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= (qi - ki) < window
+    p = torch.softmax(torch.where(mask, logits,
+                                  torch.full_like(logits, NEG_INF)), dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.reshape(b, hk, g, s, d).sum(dim=2)
+    dv = dv.reshape(b, hk, g, s, v.shape[-1]).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ssm_scan_ref(decay, u, c, state0):

@@ -1,1 +1,1 @@
-"""Entry points: serving."""
+"""Entry points: serving and training."""

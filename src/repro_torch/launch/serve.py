@@ -29,18 +29,13 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch.ckpt import AssiseCheckpointer, CheckpointConfig
 from repro_torch.ckpt.checkpoint import unflatten_into
 from repro_torch.configs import get_config
 from repro_torch.core import AssiseCluster
 from repro_torch.kernels.ops import LAUNCHES
 from repro_torch.models.transformer import Model, RunConfig
-from repro_torch.weights import tree_to_torch
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -93,10 +88,10 @@ def main(argv=None, cfg=None):
             dtype=np.int32)).long().to(dev)
 
         caches = model.init_cache(args.batch, max_len)
-        _sync(dev)
+        device_mod.sync(dev)
         t0 = time.time()
         logits, caches = model.prefill(params, prompts, caches)
-        _sync(dev)
+        device_mod.sync(dev)
         t_prefill = time.time() - t0
         generated = []
         pos = args.prompt_len
@@ -129,20 +124,19 @@ def main(argv=None, cfg=None):
                     device=dev)
                 ckpts.append(ckpt)
                 flat, man = ckpt.restore()
-                tree = unflatten_into({"caches": caches}, flat)
-                caches = tree_to_torch(tree["caches"], dev)
+                caches = unflatten_into({"caches": caches}, flat)["caches"]
                 i = man["extra"]["i"]
                 tok = torch.tensor(man["extra"]["tok"], dtype=torch.int64,
                                    device=dev)
                 generated = [np.asarray(g) for g in man["extra"]["gen"]]
-                _sync(dev)
+                device_mod.sync(dev)
                 t_failover = time.time() - t_f
                 print(f">>> session failover in {t_failover:.3f}s; "
                       f"resumed at token {i} on {store.sfs.node_id}",
                       flush=True)
                 args.inject_failure = 0
 
-        _sync(dev)
+        device_mod.sync(dev)
         dt = time.time() - t0
         toks = np.stack(generated, axis=1)
         print(f"prefill {args.batch}x{args.prompt_len} in {t_prefill:.2f}s; "

@@ -1,21 +1,26 @@
 """Decoder-only model over stages of repeated superblocks.
 
-Port of ``repro/models/transformer.py`` for serving. An
-architecture is a sequence of stages; each stage is a superblock (tuple of
-LayerSpec) repeated R times. As in the JAX package, a stage with R > 1
-keeps its parameters and caches stacked along a leading dim of size R, so
-leaf names and shapes match the reference one to one; where JAX scans
-over that dim, this module loops over it in Python.
+Port of ``repro/models/transformer.py``. An architecture is a sequence of
+stages; each stage is a superblock (tuple of LayerSpec) repeated R times.
+As in the JAX package, a stage with R > 1 keeps its parameters and caches
+stacked along a leading dim of size R, so leaf names and shapes match the
+reference one to one; where JAX scans over that dim, this module loops
+over it in Python, and in training recomputes each repeat in the backward
+(``torch.utils.checkpoint``) where JAX wraps the scan body in
+``jax.checkpoint``.
 
 Mixers are GQA attention and Mamba; MLPs are dense or MoE, so hybrid
 stacks such as Jamba's run as they are.
 
-Two modes share one code path:
+Three modes share one code path:
+  - train:   full sequence, no cache; ``loss_fn`` takes the seq-chunked
+             vocab cross-entropy plus the MoE aux loss
   - prefill: full sequence, writes the decode cache (in place)
   - decode:  single token at position ``pos`` against the cache (in place)
 
 RWKV, MLA, modality front ends and additive position embeddings are not
-ported yet: they raise ``NotImplementedError`` (ROADMAP, Queue 1).
+ported yet, nor Mamba training: they raise ``NotImplementedError``
+(ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ArchConfig, LayerSpec, Stage
@@ -42,14 +49,16 @@ def padded_vocab(v: int) -> int:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Runtime knobs the serving path reads."""
+    """Runtime knobs the serving and training paths read."""
 
     param_dtype: Any = torch.bfloat16
     cache_dtype: Any = torch.bfloat16
+    loss_chunk: int = 1024  # seq-chunked vocab xent (recomputed)
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the parts of ``cfg`` that the port does not run yet."""
+def check_supported(cfg: ArchConfig, mode: str = "prefill") -> None:
+    """Raise for the parts of ``cfg`` that the port does not run yet in
+    ``mode``."""
     if cfg.n_frontend or cfg.pos_emb == "sinusoidal":
         raise NotImplementedError(
             f"{cfg.name}: modality front ends and sinusoidal position "
@@ -63,6 +72,10 @@ def check_supported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: MLA is not ported yet "
                 "(ROADMAP: Queue 1, remaining mixers)")
+        if spec.kind == "mamba" and mode == "train":
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba training needs an ssm_scan backward, "
+                "the next slice (ROADMAP: Queue 1, Mamba training)")
 
 
 # ===========================================================================
@@ -171,29 +184,34 @@ def _apply_mixer(cfg, spec: LayerSpec, params, x, *, mode, positions, pos,
 
 def _apply_block(cfg, spec: LayerSpec, params, x, *, mode, positions, pos,
                  cache, n_groups):
+    """Returns (x, the MoE aux loss: a plain 0.0 for a dense MLP, so that
+    a dense model's serving launches nothing for it)."""
     h = apply_norm(cfg.norm, params["ln1"], x, cfg.norm_eps)
     mix_out, _ = _apply_mixer(cfg, spec, params["mixer"], h, mode=mode,
                               positions=positions, pos=pos, cache=cache)
     x = x + mix_out
+    aux = 0.0
     h = apply_norm(cfg.norm, params["ln2"], x, cfg.norm_eps)
     if spec.mlp.kind == "dense":
         x = x + apply_mlp(params["mlp"], h, spec.mlp.act)
     elif spec.mlp.kind == "moe":
-        y, _ = moe_mod.apply_moe(params["mlp"], h, spec.mlp.moe,
-                                 spec.mlp.act, n_groups=n_groups)
+        y, aux = moe_mod.apply_moe(params["mlp"], h, spec.mlp.moe,
+                                   spec.mlp.act, n_groups=n_groups)
         x = x + y
-    return x
+    return x, aux
 
 
 def _apply_superblock(cfg, stage: Stage, params, x, *, mode, positions, pos,
                       cache, n_groups):
+    aux_total = 0.0
     for i, spec in enumerate(stage.block):
         li = f"L{i}"
-        x = _apply_block(cfg, spec, params[li], x, mode=mode,
-                         positions=positions, pos=pos,
-                         cache=None if cache is None else cache[li],
-                         n_groups=n_groups)
-    return x
+        x, aux = _apply_block(cfg, spec, params[li], x, mode=mode,
+                              positions=positions, pos=pos,
+                              cache=None if cache is None else cache[li],
+                              n_groups=n_groups)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _index(tree, r: int):
@@ -204,16 +222,29 @@ def _index(tree, r: int):
 
 def _apply_stage(cfg, stage: Stage, params, x, *, mode, positions, pos,
                  cache, n_groups):
+    """Returns (x, the stage's summed MoE aux loss). In train mode each
+    repeat of a stacked stage is recomputed in the backward, as the JAX
+    package's ``jax.checkpoint`` of its scan body; a stage of one repeat is
+    not recomputed, as there."""
     if stage.repeat == 1:
         return _apply_superblock(cfg, stage, params, x, mode=mode,
                                  positions=positions, pos=pos, cache=cache,
                                  n_groups=n_groups)
+    aux_total = 0.0
     for r in range(stage.repeat):  # the JAX package's lax.scan
-        x = _apply_superblock(cfg, stage, _index(params, r), x,
-                              mode=mode, positions=positions, pos=pos,
-                              cache=None if cache is None
-                              else _index(cache, r), n_groups=n_groups)
-    return x
+        def body(x_, r=r):
+            return _apply_superblock(
+                cfg, stage, _index(params, r), x_, mode=mode,
+                positions=positions, pos=pos,
+                cache=None if cache is None else _index(cache, r),
+                n_groups=n_groups)
+        if mode == "train":
+            x, aux = checkpoint(body, x, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = body(x)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _embed(cfg: ArchConfig, params, tokens):
@@ -236,24 +267,27 @@ def _logits(cfg: ArchConfig, params, x):
 
 def forward(cfg: ArchConfig, params, tokens, *, mode: str = "prefill",
             caches=None, pos: Optional[int] = None):
-    """tokens: (B,S) [decode: (B,1)]. Returns (hidden, caches): hidden is
-    the final-norm output; the caches, when given, are updated in place."""
-    check_supported(cfg)
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: the port runs prefill and decode "
-                         "(training is ROADMAP Queue 1)")
+    """tokens: (B,S) [decode: (B,1)]. Returns (hidden, caches, aux): hidden
+    is the final-norm output; the caches, when given, are updated in place;
+    aux is the summed MoE aux loss (0.0 without MoE)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: the port runs train, prefill and "
+                         "decode")
+    check_supported(cfg, mode)
     positions = None
-    if mode == "prefill":
+    if mode != "decode":
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(cfg, params, tokens)
     n_groups = moe_mod.default_groups(tokens.shape[0], tokens.shape[1], mode)
+    aux_total = 0.0
     for i, stage in enumerate(cfg.stages):
-        x = _apply_stage(cfg, stage, params["stages"][i], x, mode=mode,
-                         positions=positions, pos=pos,
-                         cache=None if caches is None else caches[i],
-                         n_groups=n_groups)
+        x, aux = _apply_stage(cfg, stage, params["stages"][i], x, mode=mode,
+                              positions=positions, pos=pos,
+                              cache=None if caches is None else caches[i],
+                              n_groups=n_groups)
+        aux_total = aux_total + aux
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-    return x, caches
+    return x, caches, aux_total
 
 
 # ===========================================================================
@@ -261,25 +295,70 @@ def forward(cfg: ArchConfig, params, tokens, *, mode: str = "prefill",
 # ===========================================================================
 
 
+def _xent_chunk(cfg: ArchConfig, params, x_c, lab_c):
+    logits = _logits(cfg, params, x_c).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, lab_c.clamp_min(0)[..., None])[..., 0]
+    mask = (lab_c >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def _chunked_xent(cfg: ArchConfig, rc: RunConfig, params, x, labels):
+    """Seq-chunked vocab cross-entropy: the (B,S,V) logits never exist.
+    Each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``);
+    the sequence is padded to whole chunks with label -1 (masked).
+    Returns (sum_xent, sum_mask)."""
+    b, s, _ = x.shape
+    c = min(rc.loss_chunk, s)
+    nc = math.ceil(s / c)
+    pad = nc * c - s
+    labels = labels.long()
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    sum_e = torch.zeros((), dtype=torch.float32, device=x.device)
+    sum_m = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nc):  # the JAX package's lax.scan over chunks
+        e, m = checkpoint(_xent_chunk, cfg, params, x[:, i * c:(i + 1) * c],
+                          labels[:, i * c:(i + 1) * c], use_reentrant=False,
+                          preserve_rng_state=False)
+        sum_e, sum_m = sum_e + e, sum_m + m
+    return sum_e, sum_m
+
+
+def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch,
+            aux_coef: float = 0.01):
+    """batch: tokens (B,S), labels (B,S) (-1 = masked), integer tensors.
+    Returns (loss, {"xent", "aux"})."""
+    hidden, _, aux = forward(cfg, params, batch["tokens"], mode="train")
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
+    sum_e, sum_m = _chunked_xent(cfg, rc, params, hidden, batch["labels"])
+    xent = sum_e / torch.clamp(sum_m, min=1.0)
+    loss = xent + aux_coef * aux
+    return loss, {"xent": xent, "aux": aux}
+
+
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params, tokens, caches):
     """Returns (last-position logits (B,V), filled caches)."""
-    hidden, caches = forward(cfg, params, tokens, mode="prefill",
-                             caches=caches)
+    hidden, caches, _ = forward(cfg, params, tokens, mode="prefill",
+                                caches=caches)
     return _logits(cfg, params, hidden[:, -1:])[:, -1], caches
 
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params, tokens, pos: int, caches):
     """tokens (B,1), pos: int. Returns (logits (B,V), caches)."""
-    hidden, caches = forward(cfg, params, tokens, mode="decode",
-                             caches=caches, pos=pos)
+    hidden, caches, _ = forward(cfg, params, tokens, mode="decode",
+                                caches=caches, pos=pos)
     return _logits(cfg, params, hidden)[:, -1], caches
 
 
 class Model:
-    """``Model(cfg, rc, device)``: weights, caches and the two serving
-    steps on one device (``"cuda"`` unless the caller asks otherwise)."""
+    """``Model(cfg, rc, device)``: weights, caches, the training loss and
+    the two serving steps on one device (``"cuda"`` unless the caller asks
+    otherwise)."""
 
     def __init__(self, cfg: ArchConfig, rc: RunConfig = RunConfig(),
                  device="cuda"):
@@ -295,6 +374,9 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int):
         return init_cache(self.cfg, batch, max_len, self.rc, self.device)
+
+    def loss(self, params, batch):
+        return loss_fn(self.cfg, self.rc, params, batch)
 
     def prefill(self, params, tokens, caches):
         return prefill(self.cfg, params, tokens, caches)

@@ -1,0 +1,4 @@
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     clip_by_global_norm)
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "clip_by_global_norm"]

@@ -245,6 +245,82 @@ def test_flash_attention_3xtf32_split_keeps_f32_parity(window):
     assert err("f32", "tf32") > 1e-4
 
 
+# -- the backward: flash_attention_bwd_ref and the autograd path ------------
+
+_BWD_CASES = pytest.mark.parametrize("b,h,hk,s,d,dv,causal,window", [
+    (2, 2, 2, 64, 32, 32, True, None),  # causal
+    (1, 4, 4, 96, 16, 16, True, 24),  # a window
+    (2, 4, 1, 80, 32, 32, True, 16),  # GQA, gemma3-1b's 4:1
+    (1, 2, 2, 77, 16, 16, True, None),  # ragged S
+    (1, 4, 2, 64, 32, 16, True, 20),  # Dv != D
+    (1, 2, 1, 48, 16, 16, False, 12),  # non-causal with a window
+])
+
+
+def _bwd_inputs(b, h, hk, s, d, dv, seed):
+    q, k, v = _qkv((b, h, s, d), torch.float32, seed=seed, dv=dv, hk=hk)
+    dout = np.random.default_rng(seed + 1).standard_normal(
+        (b, h, s, dv)).astype(np.float32)
+    return q, k, v, dout
+
+
+# f32 tolerance of the backward: 1e-5 of the largest gradient element (the
+# full-matrix formulas against JAX's autodiff, both f32 on the CPU)
+def _assert_grads_close(got, exp, rel=1e-5):
+    for g, e in zip(got, exp):
+        g, e = np.asarray(g, np.float32), np.asarray(e, np.float32)
+        assert g.shape == e.shape
+        np.testing.assert_allclose(g, e, rtol=0,
+                                   atol=rel * np.abs(e).max())
+
+
+@_BWD_CASES
+def test_flash_attention_bwd_ref_matches_jax_vjp(jx, b, h, hk, s, d, dv,
+                                                  causal, window):
+    """The plain backward against ``jax.vjp`` of the JAX package's
+    ``flash_attention_ref``; JAX gets k and v expanded to H heads, and its
+    gradients are summed back over each kv head's group."""
+    import jax
+    q, k, v, dout = _bwd_inputs(b, h, hk, s, d, dv, seed=s + d)
+    g = h // hk
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
+    out = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    got = ref.flash_attention_bwd_ref(tq, tk, tv, out, tdo, causal=causal,
+                                      window=window)
+    _, vjp = jax.vjp(lambda a, b_, c: jx.ref.flash_attention_ref(
+        a, b_, c, causal=causal, window=window), *(jx.jnp.asarray(a) for a in (
+            q, np.repeat(k, g, axis=1), np.repeat(v, g, axis=1))))
+    jq, jk, jv = (np.asarray(a) for a in vjp(jx.jnp.asarray(dout)))
+    jk = jk.reshape(b, hk, g, s, d).sum(axis=2)
+    jv = jv.reshape(b, hk, g, s, dv).sum(axis=2)
+    _assert_grads_close([t.numpy() for t in got], [jq, jk, jv])
+
+
+@_BWD_CASES
+def test_flash_attention_autograd_matches_plain_autograd(b, h, hk, s, d, dv,
+                                                         causal, window):
+    """``ops.flash_attention`` under autograd (its backward is
+    ``flash_attention_bwd_ref`` on the CPU) gives the gradients that
+    autograd takes through ``flash_attention_ref``."""
+    arrs = _bwd_inputs(b, h, hk, s, d, dv, seed=s + h)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs[:3])
+    dout = torch.from_numpy(arrs[3])
+    got = torch.autograd.grad(ops.flash_attention(
+        q, k, v, causal=causal, window=window), (q, k, v), dout)
+    exp = torch.autograd.grad(ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window), (q, k, v), dout)
+    _assert_grads_close(got, exp)
+
+
+def test_flash_attention_without_grad_saves_nothing():
+    """Serving (no gradient) runs the forward alone: no autograd node."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(
+        (1, 2, 16, 8), torch.float32, seed=1))
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
+    assert ops.flash_attention(q, k, v).grad_fn is not None
+
+
 def _flipped(n, block, seed):
     rng = np.random.default_rng(seed)
     new = rng.integers(0, 255, n).astype(np.uint8)
@@ -498,3 +574,78 @@ def test_ssm_scan_kernel_rejects(cuda, bad):
         u = u.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         ops.ssm_scan(decay, u, c, s0)
+
+
+# The backward kernel against its plain version on the card: f32 sums of up
+# to G*S terms in another order than the plain version's einsums, held to
+# 1e-4 of the largest gradient element.
+BWD_TOL = 1e-4
+
+
+def _bwd_on_card(cuda, b, h, hk, s, d, dv, seed):
+    return [torch.from_numpy(a).to(cuda) for a in
+            _bwd_inputs(b, h, hk, s, d, dv, seed)]
+
+
+@pytest.mark.cuda
+@_MMA_CASES
+def test_flash_attention_bwd_kernel(cuda, b, h, hk, s, d, dv, causal,
+                                    window):
+    q, k, v, dout = _bwd_on_card(cuda, b, h, hk, s, d, dv, seed=s + d)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    got = flash.flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal,
+                                         window=window, scale=None)
+    again = flash.flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal,
+                                           window=window, scale=None)
+    exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 2
+    for g, a in zip(got, again):  # no atomics: the same bits every launch
+        assert torch.equal(g, a)
+    _assert_grads_close([g.cpu() for g in got], [e.cpu() for e in exp],
+                        rel=BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,hk,window", [(256, 4, 1, 512), (16, 4, 1, 32),
+                                           (128, 8, 2, None)])
+def test_flash_attention_bwd_kernel_through_autograd(cuda, d, h, hk, window):
+    """The model's strided (B, S, H, D) views through ``ops.flash_attention``
+    under autograd: the backward kernel runs once, and the gradients come
+    back in the inputs' shapes."""
+    q, k, v = (t.to(cuda).requires_grad_() for t in _bsdh_views(
+        2, 300, h, hk, d, torch.float32))
+    dout = torch.randn(2, h, 300, d, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(d))
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, window=window),
+                              (q, k, v), dout)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    with torch.no_grad():
+        out = ref.flash_attention_ref(q, k, v, window=window)
+        exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, window=window)
+    for g, t in zip(got, (q, k, v)):
+        assert g.shape == t.shape
+    _assert_grads_close([g.cpu() for g in got], [e.cpu() for e in exp],
+                        rel=BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["bfloat16", "float16", "strided"])
+def test_flash_attention_bwd_kernel_rejects(cuda, bad):
+    """The backward kernel takes float32 with a contiguous last dim; any
+    other input raises, with no launch and no other path."""
+    dtype = {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
+        bad, torch.float32)
+    q, k, v, dout = (t.to(dtype) for t in _bwd_on_card(
+        cuda, 1, 2, 2, 32, 16, 16, seed=0))
+    out = torch.zeros_like(dout)
+    if bad == "strided":
+        dout = dout.transpose(-1, -2).contiguous().transpose(-1, -2)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError):
+        flash.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True,
+                                       window=None, scale=None)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before

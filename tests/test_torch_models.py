@@ -166,10 +166,15 @@ def test_prefill_and_decode_match_jax(repeat0, small_rc):
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b-reduced",
-                                  "deepseek-moe-16b-reduced"])
+                                  "deepseek-moe-16b-reduced",
+                                  "qwen1.5-32b-reduced",
+                                  "stablelm-12b-reduced",
+                                  "phi3.5-moe-42b-a6.6b-reduced"])
 def test_hybrid_and_moe_prefill_and_decode_match_jax(arch, small_rc):
-    """Jamba's superblock (Mamba + attention, dense + MoE) and a MoE stack
-    with shared experts; decode runs 2-token MoE groups, capacity 2."""
+    """Jamba's superblock (Mamba + attention, dense + MoE), a MoE stack
+    with shared experts, qkv biases (qwen1.5), layernorm (stablelm) and
+    layernorm with MoE in every layer (phi3.5-moe); decode runs 2-token
+    MoE groups, capacity 2."""
     _check_prefill_and_decode(*_configs(1, arch), small_rc,
                               np.random.default_rng(7))
 

@@ -59,7 +59,7 @@ def test_serve_failover_matches_uninterrupted_run(small_blocks, tmp_path):
     assert 0 < ref_stats["bytes_logged"] < ref_stats["bytes_full"]
     # on the CPU the plain versions run: no kernel was launched
     assert stats["launches"] == {"delta_mask": 0, "flash_attention": 0,
-                                 "ssm_scan": 0}
+                                 "flash_attention_bwd": 0, "ssm_scan": 0}
     assert stats["peak_bytes"] is None  # a device metric: not on the CPU
 
 
@@ -205,7 +205,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.launch.serve; "
+    code = ("import sys, repro_torch.launch.serve, "
+            "repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -216,7 +217,8 @@ def test_importing_the_port_loads_no_jax():
 
 _COPIES = (sorted((ROOT / "src/repro/core").glob("*.py"))
            + sorted((ROOT / "src/repro/configs").glob("*.py"))
-           + [ROOT / "src/repro/ckpt/delta.py"])
+           + [ROOT / "src/repro/ckpt/delta.py"]
+           + sorted((ROOT / "src/repro/data").glob("*.py")))
 
 
 @pytest.mark.parametrize("src", _COPIES,
