@@ -21,9 +21,11 @@ Phases, one printed line each; any failure raises and exits non-zero:
              D=16376) against its plain version; kernel, plain, bound ms
   flash_bwd  the flash-attention backward kernel at gemma3-1b's train
              shapes (f32, B=4, H=4, Hk=1, S=1024, D=256; window 512 and
-             none; ragged S=1000) against its plain version; two launches
+             none; ragged S=1000), fed the forward kernel's output and
+             log-sum-exp, against its plain version; two launches
              bit-equal; kernel, plain, bound and library (the backward of
-             scaled_dot_product_attention) ms
+             scaled_dot_product_attention) ms; each line names the path,
+             tf32 (3xTF32 mma.sync)
   reference  gemma3-1b-reduced and jamba-1.5-large-398b-reduced prefill +
              decode on the card against the same weights on the CPU, f32;
              gemma3-1b-reduced's train loss and gradients likewise
@@ -288,11 +290,15 @@ def phase_flash_bwd(torch, ops, ref, flash) -> dict:
         q, k, v = (torch.randn(shape, generator=gen, device=dev)
                    for shape in ((b, h, s, d), (b, hk, s, d), (b, hk, s, d)))
         dout = torch.randn((b, h, s, d), generator=gen, device=dev)
-        out = ops.flash_attention(q, k, v, window=window)
+        # the forward kernel's output and log-sum-exp, as training keeps them
+        out, lse = flash.flash_attention_cuda(q, k, v, causal=True,
+                                              window=window, scale=None,
+                                              with_lse=True)
 
         def kernel():
             return flash.flash_attention_bwd_cuda(
-                q, k, v, out, dout, causal=True, window=window, scale=None)
+                q, k, v, out, dout, lse, causal=True, window=window,
+                scale=None)
         got, again = kernel(), kernel()
         exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, window=window)
         torch.cuda.synchronize()
@@ -327,7 +333,8 @@ def phase_flash_bwd(torch, ops, ref, flash) -> dict:
         t_ops = flops / PEAK_FLOPS["float32"] * 1e3
         t_core = flops / CUDA_CORE_F32_FLOPS * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        label = f"f32 B={b} H={h} Hk={hk} S={s} D={d} window={window}"
+        label = (f"f32 B={b} H={h} Hk={hk} S={s} D={d} window={window} "
+                 f"tf32")
         print(f"flash_attention_bwd[{label}]: max_abs_err {err:.3e} (tol "
               f"{BWD_TOL:g} of each gradient's max); two launches bit-equal; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
@@ -345,7 +352,7 @@ def phase_flash_bwd(torch, ops, ref, flash) -> dict:
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
-        del q, k, v, dout, out, got, again, exp, qr, kr, vr, o_lib
+        del q, k, v, dout, out, lse, got, again, exp, qr, kr, vr, o_lib
         torch.cuda.empty_cache()
     main = dict(results[(1024, 512)])  # the local layers, 5 of 6
     del main["label"]

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root
 of the checkout (one shared library per source, named by a hash of the
-source and the flags, so an edited source is rebuilt) and loaded with
-``ctypes``. ``build()`` starts one ``nvcc`` per source, all at once.
+source, every ``csrc/*.cuh`` header and the flags, so an edited source or
+header is rebuilt) and loaded with ``ctypes``. ``build()`` starts one
+``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module, and
 there is no ``nvcc`` where they run.
@@ -45,6 +46,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -69,7 +69,11 @@
 //     without a shuffle; V, read at key 2t and column g, is padded by 4
 //     floats;
 //   - Q is split again on every KV tile: split Q would not fit beside the
-//     K and V tiles at HD = 256.
+//     K and V tiles at HD = 256;
+//   - the split and mma helpers live in tf32_mma.cuh, shared with the
+//     backward; where the caller passes an lse buffer (training), group 0
+//     writes each row's log-sum-exp m + log2(l) after the merge, in the
+//     log2 domain of the scores, so the backward need not recompute it.
 // Both read kv head h / (H / Hk) directly instead of a copy (GQA), take any
 // S (the ragged last tile is masked), Dv != D, and strided q, k, v with a
 // unit last dimension, 16-byte aligned pointers and row strides, which the
@@ -78,6 +82,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -95,6 +101,7 @@ struct Params {
   float scale;
   int causal;
   int window;  // <= 0: no window
+  float* lse;  // (B, H, S) contiguous, or null; f32 only
 };
 
 // ---------------------------------------------------------------------------
@@ -413,43 +420,6 @@ struct TileF32 {
       sizeof(float) * (kQ + kGroups * (kK + kV));
 };
 
-// x to TF32, to nearest with ties away from zero: the rounding of
-// cvt.rna.tf32.f32 for every finite x, in 2 integer instructions where
-// sm_90a expands the cvt into 4 with an infinity test.
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// the 3xTF32 split: x = big + small + what TF32 cannot hold of x - big
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = rna_tf32(x);
-  small = rna_tf32(x - __uint_as_float(big));
-}
-
-// c += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate.
-__device__ __forceinline__ void mma1688(float (&c)[4],
-                                        const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b in 3xTF32: small * big + big * small first, then big * big;
-// small * small is dropped
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&a_big)[4],
-                                           const uint32_t (&a_small)[4],
-                                           const uint32_t (&b_big)[2],
-                                           const uint32_t (&b_small)[2]) {
-  mma1688(c, a_small, b_big[0], b_big[1]);
-  mma1688(c, a_big, b_small[0], b_small[1]);
-  mma1688(c, a_big, b_big[0], b_big[1]);
-}
-
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
@@ -670,6 +640,7 @@ __global__ void __launch_bounds__(kGroups * kThreads)
     c0[r] = exp2f(m[r] - mx);
     c1[r] = exp2f(m1 - mx);
     l[r] = l[r] * c0[r] + X[(HD / 2 + 2 + r) * 32] * c1[r];
+    m[r] = mx;
   }
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j)
@@ -685,7 +656,13 @@ __global__ void __launch_bounds__(kGroups * kThreads)
     float sum = l[r];
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    inv[r] = 1.f / fmaxf(sum, 1e-30f);
+    sum = fmaxf(sum, 1e-30f);
+    inv[r] = 1.f / sum;
+    // the row's log-sum-exp for the backward, in the log2 domain of the
+    // scores (scale * log2(e) folded in): log2 sum_j 2^(s_ij scale log2 e)
+    const int qp = q0 + warp * 16 + g + 8 * r;
+    if (p.lse != nullptr && tq == 0 && qp < S)
+      p.lse[static_cast<long long>(bh) * S + qp] = m[r] + log2f(sum);
   }
   float* Ow = Qs + warp * 16 * kLdQK;
 #pragma unroll
@@ -764,20 +741,26 @@ const char* cuda_error_string(int err) {
 // batch/head/seq strides in elements with a unit last stride; 16-byte
 // aligned pointers, strides and head dims multiples of 16 bytes.
 // dtype: 0 = float32 (flash_fwd_tf32), 1 = bfloat16 (flash_fwd_mma).
-// window <= 0: no window.
+// window <= 0: no window. lse: null, or (f32 only) a contiguous (B, H, S)
+// float32 output that takes each row's log-sum-exp in the log2 domain,
+// log2 sum_j 2^(s_ij * scale * log2(e)), for the backward.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int H, int Hk, int S, int D, int Dv,
                         long long q_sb, long long q_sh, long long q_ss,
                         long long k_sb, long long k_sh, long long k_ss,
                         long long v_sb, long long v_sh, long long v_ss,
                         long long o_sb, long long o_sh, long long o_ss,
-                        float scale, int causal, int window, void* stream) {
+                        float scale, int causal, int window, void* lse,
+                        void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if (Hk <= 0 || H % Hk || D <= 0 || D > kMaxD || Dv <= 0 || Dv > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q,    k,    v,    o,    H,    H / Hk, S,    D,    Dv,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,   v_sb, v_sh, v_ss,
-           o_sb, o_sh, o_ss, scale, causal, window};
+           o_sb, o_sh, o_ss, scale, causal, window,
+           static_cast<float*>(lse)};
+  if (lse != nullptr && dtype != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_tf32(p, B, st);
   if (dtype == 1) return launch_mma(p, B, st);

@@ -10,7 +10,9 @@ inputs (k, v with Hk heads, H % Hk == 0) without expanding them.
 on tensor cores: bfloat16 in ``flash_fwd_mma``, float32 in
 ``flash_fwd_tf32`` (each product as three TF32 products, for f32
 accuracy). The backward (``flash_attention_bwd_cuda``) is the gradient
-that the JAX package leaves to autodiff; it runs in float32.
+that the JAX package leaves to autodiff; it runs in float32, on tensor
+cores as 3xTF32 too, from the log-sum-exp that the f32 forward keeps when
+asked (``with_lse=True``).
 """
 from __future__ import annotations
 
@@ -67,12 +69,16 @@ def check_mma_layout(tensors: dict) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, window, scale) -> torch.Tensor:
+                         *, causal: bool, window, scale, with_lse=False):
     """Launch the kernel. Inputs may be strided views (for example the
     (B, S, H, D) projections transposed) as long as the last dim is
     contiguous and the layout passes ``check_mma_layout``. Returns
     (B, H, S, Dv) in ``q.dtype``, laid out in memory as (B, S, H, Dv) so
-    that the caller's transpose back is free."""
+    that the caller's transpose back is free. With ``with_lse`` (float32
+    only) returns ``(out, lse)``: lse (B, H, S) float32 holds each row's
+    log-sum-exp of its scaled, masked scores in base 2,
+    ``log2 sum_j 2**(s_ij * scale * log2(e))`` (the natural one times
+    log2(e)), which ``flash_attention_bwd_cuda`` takes."""
     b, h, s, d = q.shape
     hk, dv = k.shape[1], v.shape[-1]
     if q.dtype not in _DTYPES:
@@ -83,13 +89,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_HEAD_DIM}, got D={d}, Dv={dv}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention wants a contiguous last dim")
+    if with_lse and q.dtype != torch.float32:
+        raise ValueError(f"flash_attention keeps its log-sum-exp for the "
+                         f"float32 backward only, not {q.dtype}")
     out = torch.empty((b, s, h, dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     check_mma_layout({"q": q, "k": k, "v": v, "out": out})
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _build.load("flash_attention")
     lib.flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_void_p])
     lib.flash_attention_fwd.restype = ctypes.c_int
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
@@ -97,10 +109,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], b, h, hk, s, d, dv, *strides, float(scale),
-        int(causal), int(window or 0), stream)
+        int(causal), int(window or 0),
+        None if lse is None else lse.data_ptr(), stream)
     _build.check(lib, err, "flash_attention launch")
     _build.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def _like_bshd(t: torch.Tensor) -> torch.Tensor:
@@ -114,12 +127,14 @@ def _like_bshd(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
-                             dout: torch.Tensor, *, causal: bool, window,
-                             scale):
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool, window, scale):
     """Launch ``csrc/flash_attention_bwd.cu``: the gradient of the forward
-    that gave ``out`` for the incoming gradient ``dout`` (both
-    (B, H, S, Dv)). Returns (dq, dk, dv) shaped as q, k and v. float32
-    only; every input may be a strided view with a contiguous last dim."""
+    that gave ``out`` and ``lse`` (``flash_attention_cuda(...,
+    with_lse=True)``, same causal, window and scale) for the incoming
+    gradient ``dout`` (both (B, H, S, Dv)). Returns (dq, dk, dv) shaped as
+    q, k and v. float32 only; every input but lse may be a strided view
+    with a contiguous last dim."""
     check_args(q, k, v)
     b, h, s, d = q.shape
     hk, dv_dim = k.shape[1], v.shape[-1]
@@ -141,15 +156,26 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if d > MAX_HEAD_DIM or dv_dim > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_bwd on the card takes head dims "
                          f"up to {MAX_HEAD_DIM}, got D={d}, Dv={dv_dim}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}, want a contiguous "
+                         f"{(b, h, s)} float32 tensor on {q.device}")
     dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    # a kv head that serves G > 1 query heads: each query head's dK and dV
+    # go to scratch, summed in head order by a second pass (no atomics)
+    dkp = dvp = None
+    if h > hk:
+        dkp = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
+        dvp = torch.empty((b, h, s, dv_dim), dtype=torch.float32,
+                          device=q.device)
     strides = (ctypes.c_longlong * 24)(*[
         t.stride(i) for t in (q, k, v, out, dout, dq, dk, dv)
         for i in range(3)])
     lib = _build.load("flash_attention_bwd")
     lib.flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
            ctypes.c_int, ctypes.c_void_p])
     lib.flash_attention_bwd.restype = ctypes.c_int
@@ -158,6 +184,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     err = lib.flash_attention_bwd(
         *(t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv, lse,
                                  delta)),
+        *(None if t is None else t.data_ptr() for t in (dkp, dvp)),
         b, h, hk, s, d, dv_dim, strides, float(scale), int(causal),
         int(window or 0), stream)
     _build.check(lib, err, "flash_attention_bwd launch")

@@ -42,21 +42,29 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out = _flash_forward(q, k, v, causal, window, scale)
-        ctx.save_for_backward(q, k, v, out)
+        lse = None
+        if _route(q, "flash_attention") == "cuda" \
+                and q.dtype == torch.float32:
+            # the f32 kernel keeps each row's log-sum-exp for the backward
+            out, lse = _flash.flash_attention_cuda(
+                q, k, v, causal=causal, window=window, scale=scale,
+                with_lse=True)
+        else:
+            out = _flash_forward(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = dict(causal=causal, window=window, scale=scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if _route(q, "flash_attention") == "cpu":
             grads = ref.flash_attention_bwd_ref(q, k, v, out, dout,
                                                 **ctx.args)
         else:
             if dout.stride(-1) != 1:
                 dout = dout.contiguous()
-            grads = _flash.flash_attention_bwd_cuda(q, k, v, out, dout,
+            grads = _flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
                                                     **ctx.args)
         return (*grads, None, None, None)
 

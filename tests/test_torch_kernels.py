@@ -158,9 +158,10 @@ def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
     """Each dtype goes to one tensor-core kernel: bf16 to flash_fwd_mma,
     whose products are mma.sync m16n8k16 bf16; f32 to flash_fwd_tf32, whose
     products are three mma.sync m16n8k8 tf32 on operands split with the
-    rounding of cvt.rna.tf32.f32. No SIMT kernel and no scalar product is
-    left."""
+    rounding of cvt.rna.tf32.f32, helpers that tf32_mma.cuh holds for both
+    f32 kernels. No SIMT kernel and no scalar product is left."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
+    hdr = (_build.CSRC / "tf32_mma.cuh").read_text()
     code, entry, launcher, kernel, product = {
         "bfloat16": (1, "launch_mma", "launch_bf16", "flash_fwd_mma",
                      "mma16816"),
@@ -176,13 +177,14 @@ def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
         assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" \
             in _body(src, "void mma16816(")
     else:
+        assert '#include "tf32_mma.cuh"' in src
         assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" \
-            in _body(src, "void mma1688(")
-        assert _body(src, "void mma_3xtf32(").count("mma1688(") == 3
+            in _body(hdr, "void mma1688(")
+        assert _body(hdr, "void mma_3xtf32(").count("mma1688(") == 3
         # both parts rounded as _tf32 below (and cvt.rna.tf32.f32) round
         assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" \
-            in _body(src, "uint32_t rna_tf32(")
-        assert _body(src, "void split_tf32(").count("rna_tf32(") == 2
+            in _body(hdr, "uint32_t rna_tf32(")
+        assert _body(hdr, "void split_tf32(").count("rna_tf32(") == 2
         assert "split_tf32(" in _body(src, f"{kernel}(Params p) {{")
     assert "flash_fwd_simt" not in src and "fmaf(" not in src
 
@@ -321,6 +323,105 @@ def test_flash_attention_without_grad_saves_nothing():
     assert ops.flash_attention(q, k, v).grad_fn is not None
 
 
+def _emulated_flash_bwd(q, k, v, out, dout, window, how):
+    """flash_attention_bwd.cu's arithmetic over whole rows at once: the
+    forward's log-sum-exp in base 2 (from 3xTF32 scores, as flash_fwd_tf32
+    gives it), P = exp2(S scale log2(e) - lse) with S recomputed by
+    ``how``, delta = rowsum(dO o O) in f32, and dP = dO V^T, dV = P^T dO,
+    dK = dS^T Q scale, dQ = dS K scale by ``how``; dK and dV summed over
+    each kv head's group."""
+    b, h, s, d = q.shape
+    hk = k.shape[1]
+    g = h // hk
+    ke, ve = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    scale = 1.0 / math.sqrt(d)
+    i = torch.arange(s)
+    mask = i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[:, None] - i[None, :] < window
+
+    def scores(qk):
+        x = _product(q, ke.transpose(-1, -2), qk) * (
+            scale * math.log2(math.e))
+        return torch.where(mask, x, torch.full_like(x, ref.NEG_INF))
+    lse = torch.logsumexp(scores("3xtf32") * math.log(2), dim=-1,
+                          keepdim=True) / math.log(2)
+    p = torch.exp2(scores(how) - lse)
+    delta = (dout * out).sum(dim=-1, keepdim=True)
+    ds = p * (_product(dout, ve.transpose(-1, -2), how) - delta)
+    dv = _product(p.transpose(-1, -2), dout, how)
+    dk = _product(ds.transpose(-1, -2), q, how) * scale
+    dq = _product(ds, ke, how) * scale
+    return (dq, dk.reshape(b, hk, g, s, d).sum(dim=2),
+            dv.reshape(b, hk, g, s, v.shape[-1]).sum(dim=2))
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_bwd_3xtf32_split_keeps_f32_parity(window):
+    """Why the backward splits every product into three TF32 products. At
+    gemma3-1b's heads (H=4, Hk=1, D=256), B=2, S=256, the emulated split
+    is within 1.5e-06 of each gradient's max from the f32 plain version
+    (window None or 64); with each of the five products and the recomputed
+    P as one TF32 product, dQ is 1.18e-03 of its max from it, dK 6.8e-04
+    to 7.7e-04, dV 7.2e-04: outside the 1e-4 that the card's tests and
+    chip_smoke.py hold the kernel to."""
+    q, k, v, dout = (torch.from_numpy(a) for a in _bwd_inputs(
+        2, 4, 1, 256, 256, 256, seed=512))
+    out = ref.flash_attention_ref(q, k, v, window=window)
+    exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, window=window)
+
+    def errs(how):
+        got = _emulated_flash_bwd(q, k, v, out, dout, window, how)
+        return [((g - e).abs().max() / e.abs().max()).item()
+                for g, e in zip(got, exp)]
+    assert max(errs("3xtf32")) < 1e-5
+    assert min(errs("tf32")) > 5e-4
+
+
+def test_flash_attention_bwd_cu_runs_only_on_tensor_cores():
+    """Every product of the backward is 3xTF32 mma.sync: the two product
+    kernels (dK and dV; dQ) run S and dP through mma_nt2 and the gradient
+    products through mma_nn, whose steps call mma_3xtf32 on operands split
+    by split_tf32 (tf32_mma.cuh). No SIMT product loop (dots<, fmaf) is
+    left, and the passes that are not products (delta, the group sum) do
+    no mma."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert '#include "tf32_mma.cuh"' in src
+    assert "dots<" not in src and "fmaf(" not in src
+    for helper in ("void nt_step(", "void mma_nn("):
+        body = _body(src, helper)
+        assert "mma_3xtf32(" in body and "split_tf32(" in body
+    assert _body(src, "void mma_nt2(").count("nt_step<") == 4
+    for kernel, products in (("flash_bwd_dkdv(Params p)", 2),
+                             ("flash_bwd_dq(Params p)", 1)):
+        body = _body(src, kernel)
+        assert body.count("mma_nt2<") == 1
+        assert body.count("mma_nn<") == products
+    for kernel in ("flash_bwd_delta(Params p)",
+                   "flash_bwd_dkdv_sum(Params p)"):
+        assert "mma" not in _body(src, kernel)
+    launch = _body(src, "int launch(const Params& p")
+    assert re.findall(r"launch_one\((flash_bwd_\w+)", launch) == [
+        "flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dkdv_sum",
+        "flash_bwd_dq"]
+    assert "flash_bwd_prep" not in src
+
+
+def test_library_path_hashes_headers(tmp_path, monkeypatch):
+    """An edit to a csrc header names a new library, so every source is
+    rebuilt with it; an edit elsewhere does not."""
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert {n: _build.library_path(n) for n in _build.SOURCES} == before
+    with open(tmp_path / "tf32_mma.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+
+
 def _flipped(n, block, seed):
     rng = np.random.default_rng(seed)
     new = rng.integers(0, 255, n).astype(np.uint8)
@@ -445,6 +546,7 @@ _MMA_CASES = pytest.mark.parametrize("b,h,hk,s,d,dv,causal,window", [
     (1, 64, 8, 1000, 128, 128, True, None),  # ragged S
     (1, 4, 1, 1024, 256, 256, True, 512),  # gemma3-1b's local layers
     (1, 4, 1, 1024, 256, 256, True, None),  # ... and global ones
+    (2, 4, 4, 256, 256, 256, True, 64),  # gemma's heads with G = 1
     (2, 2, 1, 200, 40, 24, True, None),  # padded head dims
     (2, 4, 2, 300, 64, 64, False, 40),  # non-causal with a window
     (1, 4, 4, 77, 16, 8, True, 5),  # a tile smaller than one of the kernel
@@ -489,6 +591,45 @@ def test_flash_attention_tf32_kernel(cuda, b, h, hk, s, d, dv, causal,
     assert ops.LAUNCHES["flash_attention"] == before + 1
     assert out.dtype == torch.float32 and out.shape == exp.shape
     torch.testing.assert_close(out, exp, atol=1e-4, rtol=1e-4)
+
+
+# The f32 forward's log-sum-exp, kept for the backward: base 2 of the
+# scores scaled by scale*log2(e), so times ln 2 it is torch.logsumexp of
+# the masked, scaled f32 scores, within 1e-5 (3xTF32 scores, an exp2 sum
+# in another order).
+@pytest.mark.cuda
+@_MMA_CASES
+def test_flash_attention_tf32_kernel_lse(cuda, b, h, hk, s, d, dv, causal,
+                                         window):
+    q, k, v = (t.to(cuda) for t in _port(
+        _qkv((b, h, s, d), torch.float32, seed=s + d, dv=dv, hk=hk),
+        torch.float32))
+    out, lse = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window, scale=None,
+                                          with_lse=True)
+    alone = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                       window=window, scale=None)
+    ke = k.repeat_interleave(h // hk, dim=1)
+    x = torch.einsum("bhqd,bhkd->bhqk", q, ke) / math.sqrt(d)
+    i = torch.arange(s, device=cuda)
+    mask = torch.ones((s, s), dtype=torch.bool, device=cuda)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[:, None] - i[None, :] < window
+    exp = torch.logsumexp(x.masked_fill(~mask, -math.inf), dim=-1)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert torch.equal(out, alone)  # keeping lse leaves the output as it is
+    torch.testing.assert_close(lse * math.log(2), exp, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_lse_is_f32_only(cuda):
+    q = torch.zeros(1, 2, 16, 16, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        flash.flash_attention_cuda(q, q, q, causal=True, window=None,
+                                   scale=None, with_lse=True)
 
 
 @pytest.mark.cuda
@@ -591,13 +732,20 @@ def _bwd_on_card(cuda, b, h, hk, s, d, dv, seed):
 @_MMA_CASES
 def test_flash_attention_bwd_kernel(cuda, b, h, hk, s, d, dv, causal,
                                     window):
+    """From the forward kernel's output and lse. Where H > Hk (gemma3-1b's
+    4:1, Jamba's 8:1) dK and dV go through per-head scratch and the
+    group-sum pass; where H == Hk they are written in place."""
     q, k, v, dout = _bwd_on_card(cuda, b, h, hk, s, d, dv, seed=s + d)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window, scale=None,
+                                          with_lse=True)
     before = ops.LAUNCHES["flash_attention_bwd"]
-    got = flash.flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal,
-                                         window=window, scale=None)
-    again = flash.flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal,
-                                           window=window, scale=None)
+    got = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                         causal=causal, window=window,
+                                         scale=None)
+    again = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                           causal=causal, window=window,
+                                           scale=None)
     exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
                                       window=window)
     torch.cuda.synchronize()
@@ -633,19 +781,21 @@ def test_flash_attention_bwd_kernel_through_autograd(cuda, d, h, hk, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["bfloat16", "float16", "strided"])
+@pytest.mark.parametrize("bad", ["bfloat16", "float16", "strided", "lse"])
 def test_flash_attention_bwd_kernel_rejects(cuda, bad):
-    """The backward kernel takes float32 with a contiguous last dim; any
-    other input raises, with no launch and no other path."""
+    """The backward kernel takes float32 with a contiguous last dim and the
+    forward's (B, H, S) lse; any other input raises, with no launch and no
+    other path."""
     dtype = {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
         bad, torch.float32)
     q, k, v, dout = (t.to(dtype) for t in _bwd_on_card(
         cuda, 1, 2, 2, 32, 16, 16, seed=0))
     out = torch.zeros_like(dout)
+    lse = torch.zeros(1, 2, 31 if bad == "lse" else 32, device=cuda)
     if bad == "strided":
         dout = dout.transpose(-1, -2).contiguous().transpose(-1, -2)
     before = ops.LAUNCHES["flash_attention_bwd"]
     with pytest.raises(ValueError):
-        flash.flash_attention_bwd_cuda(q, k, v, out, dout, causal=True,
+        flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=True,
                                        window=None, scale=None)
     assert ops.LAUNCHES["flash_attention_bwd"] == before
