@@ -18,7 +18,14 @@ Phases, one printed line each; any failure raises and exits non-zero:
              3xTF32), both on tensor cores, and the rate its bound assumes
   ssm_scan   the selective-scan kernel at the Jamba prefill shape (f32,
              B=4, S=1024, D=16384, N=16) and a ragged one (S=1000,
-             D=16376) against its plain version; kernel, plain, bound ms
+             D=16376) against its plain version; kernel, plain, bound ms,
+             and the kernel's ms when it also keeps its boundary states
+  ssm_bwd    the selective-scan backward kernel at the same two shapes,
+             with 1 % exact-zero decays, fed the forward kernel's boundary
+             states (themselves held against the plain scan's states at
+             those steps) against its plain version; two launches
+             bit-equal; kernel, plain and bound ms (no single library call
+             computes it)
   flash_bwd  the flash-attention backward kernel at gemma3-1b's train
              shapes (f32, B=4, H=4, Hk=1, S=1024, D=256; window 512 and
              none; ragged S=1000), fed the forward kernel's output and
@@ -28,7 +35,7 @@ Phases, one printed line each; any failure raises and exits non-zero:
              tf32 (3xTF32 mma.sync)
   reference  gemma3-1b-reduced and jamba-1.5-large-398b-reduced prefill +
              decode on the card against the same weights on the CPU, f32;
-             gemma3-1b-reduced's train loss and gradients likewise
+             both archs' train loss and gradients likewise
   serve      full-width gemma3-1b (f32) through repro_torch.launch.serve:
              batch 4, prompt 1024, 32 tokens, a delta snapshot every 8, a
              node kill and failover at 20; tokens and final logits equal to
@@ -46,14 +53,20 @@ Phases, one printed line each; any failure raises and exits non-zero:
              and the final parameters' CRC equal to an uninterrupted run
              without checkpoints; delta_mask, flash_attention and
              flash_attention_bwd launched on that path; then 2 steps of the
-             whole 26-layer model. It runs in a child process with
+             whole 26-layer model; then jamba-1.5-large-398b-reduced (f32,
+             batch 4, seq 1024, 4096-byte delta blocks) with the same
+             checkpoints, kill and bit-exact resume, all five kernels
+             launched; then full-width Jamba-1.5-Large cut to its first
+             layer (Mamba + dense SwiGLU, 2.10e9 parameters), 3 steps
+             without checkpoints. It runs in a child process with
              CUBLAS_WORKSPACE_CONFIG set, which the deterministic train
              step needs and which would slow the serve phases' decode
 Then one JSON line with every kernel's numbers (launches summed over the
-runs with a node kill: two serve runs and one train run; flash_attention's
-entry is gemma3-1b's f32 case, flash_attention_bwd's its window-512 train
-case, each with every case under "cases"), and the last line {"ok": true,
-"device": {...}}. Times are CUDA-event medians of 20 runs.
+main-path runs: two serve runs and two train runs with a node kill, and
+the Jamba L0 train run; flash_attention's entry is gemma3-1b's f32 case,
+flash_attention_bwd's its window-512 train case, each with every case
+under "cases"), and the last line {"ok": true, "device": {...}}. Times are
+CUDA-event medians of 20 runs.
 """
 from __future__ import annotations
 
@@ -84,6 +97,8 @@ JAMBA_ARGS = ["--batch", "4", "--prompt-len", "1024", "--gen", "32",
               "--snapshot-every", "8", "--seed", "0", "--dtype", "bfloat16"]
 JAMBA_LAYERS = 4  # of the 8-layer superblock: one superblock is 90.5 GB
 TRAIN_ARGS = ["--batch", "4", "--seq", "1024", "--lr", "1e-3"]
+KILL_ARGS = ["--steps", "8", "--ckpt-every", "3", "--inject-failure", "7"]
+JAMBA_TRAIN_STEPS = 3  # the full-width L0 cut, without checkpoints
 
 
 def time_ms(torch, fn) -> float:
@@ -363,7 +378,7 @@ def phase_flash_bwd(torch, ops, ref, flash) -> dict:
     return main
 
 
-def phase_ssm(torch, ops, ref) -> dict:
+def phase_ssm(torch, ops, ref, ssm) -> dict:
     """The scan at the Jamba prefill shape, then a ragged S and D (16376 is
     not a multiple of the kernel's 16 d's a block). Decays are
     exp(-uniform(0, 0.5)), as Mamba's exp(dt*A) with a small dt."""
@@ -396,17 +411,100 @@ def phase_ssm(torch, ops, ref) -> dict:
             result["max_abs_err"] = max(result["max_abs_err"], err)
             continue
         ms = time_ms(torch, lambda: ops.ssm_scan(decay, u, c, s0))
+        kept_ms = time_ms(torch, lambda: ssm.ssm_scan_cuda(
+            decay, u, c, s0, with_bounds=True))
         plain_ms = time_ms(torch, lambda: ref.ssm_scan_ref(decay, u, c, s0))
         nbytes = 4 * (2 * b * s * d * n + b * s * n + 2 * b * d * n
                       + b * s * d)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"ssm_scan[{label}]: max_abs_err {err:.3e} (tol {tol:g}); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)", flush=True)
+              f"{bound_ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s); keeping "
+              f"the boundary states for a backward {kept_ms:.4f} ms",
+              flush=True)
         result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": "bytes",
                   "library_ms": None}
         del decay, u, c, s0
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_ssm_bwd(torch, ref, ssm) -> dict:
+    """The scan's backward kernel at the Jamba train shape, then a ragged S
+    and D, from the forward kernel's boundary states; decays as in
+    ``phase_ssm`` with 1 % of them exactly 0 (exp(dt*A) underflows in f32).
+    Its bound counts the bytes of the function's inputs (decay, u, c,
+    state0, dy) and outputs (d_decay, d_u, d_c, d_state0)."""
+    dev = torch.device("cuda")
+    result = None
+    for b, s, d, n in ((4, 1024, 16384, 16), (4, 1000, 16376, 16)):
+        gen = torch.Generator(device=dev).manual_seed(3 * s)
+        decay = torch.rand((b, s, d, n), generator=gen, device=dev)
+        decay = decay.mul_(-0.5).exp_()
+        decay[torch.rand((b, s, d, n), generator=gen, device=dev) < 0.01] = 0
+        u = torch.randn((b, s, d, n), generator=gen, device=dev)
+        c = torch.randn((b, s, n), generator=gen, device=dev)
+        s0 = torch.randn((b, d, n), generator=gen, device=dev)
+        dy = torch.randn((b, s, d), generator=gen, device=dev)
+        _, _, bounds = ssm.ssm_scan_cuda(decay, u, c, s0, with_bounds=True)
+        # the plain scan's state entering each chunk
+        st, bound_err = s0, 0.0
+        for k in range(bounds.shape[1]):
+            bound_err = max(bound_err, (bounds[:, k] - st).abs().max().item())
+            t0, t1 = k * ssm.CHUNK, min(s, (k + 1) * ssm.CHUNK)
+            _, st = ref.ssm_scan_ref(decay[:, t0:t1], u[:, t0:t1],
+                                     c[:, t0:t1], st)
+        if bound_err > 1e-4:
+            raise AssertionError(f"ssm_scan boundary states: max abs err "
+                                 f"{bound_err}")
+
+        def kernel():
+            return ssm.ssm_scan_bwd_cuda(decay, u, c, bounds, dy)
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"ssm_scan_bwd B={b} S={s} D={d}: two "
+                                 "launches differ")
+        del again
+        exp = ref.ssm_scan_bwd_ref(decay, u, c, s0, dy)
+        # f32 sums in another order (FMA, shuffles, partials) than the
+        # plain version's: within 1e-4 of each gradient's largest element
+        err, worst, ok = 0.0, 0.0, True
+        for x, e in zip(got, exp):
+            e_x = (x - e).abs().max().item()
+            rel = e_x / e.abs().max().item()
+            err, worst = max(err, e_x), max(worst, rel)
+            ok &= x.shape == e.shape and bool(torch.isfinite(x).all()) \
+                and rel <= BWD_TOL
+        del got, exp
+        torch.cuda.empty_cache()
+        label = f"f32 B={b} S={s} D={d} N={n}"
+        if not ok:
+            raise AssertionError(f"ssm_scan_bwd {label}: max abs err {err}")
+        if result is not None:  # the ragged case: checked, not timed
+            print(f"ssm_scan_bwd[{label}]: max_abs_err {err:.3e}, "
+                  f"{worst:.3e} of its gradient's max (tol {BWD_TOL:g}); two "
+                  f"launches bit-equal; boundary states max abs err "
+                  f"{bound_err:.3e}", flush=True)
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            continue
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, lambda: ref.ssm_scan_bwd_ref(
+            decay, u, c, s0, dy))
+        nbytes = 4 * (4 * b * s * d * n + b * s * d + 2 * b * s * n
+                      + 2 * b * d * n)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"ssm_scan_bwd[{label}]: max_abs_err {err:.3e}, {worst:.3e} "
+              f"of its gradient's max (tol {BWD_TOL:g}); two launches "
+              f"bit-equal; boundary states max abs err {bound_err:.3e} (tol "
+              f"1e-4); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s); library: "
+              f"none (no single call)", flush=True)
+        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": "bytes",
+                  "library_ms": None}
+        del decay, u, c, s0, dy, bounds
         torch.cuda.empty_cache()
     return result
 
@@ -440,11 +538,12 @@ def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
 
 
 def phase_train_reference(torch, Model, RunConfig, get_config,
-                          tree_to_torch, tree_leaves) -> None:
-    """gemma3-1b-reduced's train loss and every gradient on the card
-    (flash forward and backward kernels) against the same weights and batch
-    on the CPU (plain versions), f32: S = 100 in 64-token loss chunks."""
-    cfg = get_config("gemma3-1b-reduced")
+                          tree_to_torch, tree_leaves, arch) -> None:
+    """``arch``'s train loss and every gradient on the card (flash forward
+    and backward kernels; for Jamba also the scan's) against the same
+    weights and batch on the CPU (plain versions), f32: S = 100 in 64-token
+    loss chunks."""
+    cfg = get_config(arch)
     rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
                    loss_chunk=64)
     cpu, dev = Model(cfg, rc, "cpu"), Model(cfg, rc, "cuda")
@@ -467,11 +566,11 @@ def phase_train_reference(torch, Model, RunConfig, get_config,
         err = (g_dev - g_cpu).abs().max().item()
         worst = max(worst, err / max(g_cpu.abs().max().item(), 1e-30))
     loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    print(f"reference: gemma3-1b-reduced train loss 2x100, card vs CPU "
+    print(f"reference: {arch} train loss 2x100, card vs CPU "
           f"relative loss diff {loss_err:.3e}, worst gradient diff "
           f"{worst:.3e} of its leaf's max (tol 1e-4)", flush=True)
     if loss_err > 1e-5 or worst > 1e-4:
-        raise AssertionError("reference train: card and CPU differ")
+        raise AssertionError(f"reference train {arch}: card and CPU differ")
 
 
 def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
@@ -517,29 +616,25 @@ def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
     return counts
 
 
-def phase_train(torch, train, launches, gemma, Stage) -> dict:
-    """Train gemma3-1b's first superblock at full width with a node kill
-    after step 7 (checkpoints after steps 2 and 5; resume at 6), then
-    uninterrupted without checkpoints: the losses from the resumed step on
-    and the final parameters must be bit-equal. Then 2 steps of the whole
-    model. Returns the kill run's kernel launches."""
-    cut = dataclasses.replace(gemma, stages=(
-        Stage(block=gemma.stages[0].block, repeat=1),))
+def train_kill_and_resume(torch, train, launches, label, args, cfg, needs):
+    """Train ``cfg`` with a node kill after step 7 (checkpoints after steps
+    2 and 5; resume at 6), then uninterrupted without checkpoints: the
+    losses from the resumed step on and the final parameters must be
+    bit-equal, and the kernels in ``needs`` must launch on the kill run.
+    Returns (losses, stats, uninterrupted stats, the kill run's
+    launches)."""
     for k in launches:
         launches[k] = 0
-    losses, stats = train.main(TRAIN_ARGS + [
-        "--steps", "8", "--ckpt-every", "3", "--inject-failure", "7"],
-        cfg=cut)
+    losses, stats = train.main(args + KILL_ARGS, cfg=cfg)
     counts = dict(launches)
     torch.cuda.empty_cache()
-    ref, ref_stats = train.main(TRAIN_ARGS + ["--steps", "8",
-                                              "--ckpt-every", "0"], cfg=cut)
+    ref, ref_stats = train.main(args + ["--steps", "8", "--ckpt-every", "0"],
+                                cfg=cfg)
     torch.cuda.empty_cache()
-    label = "train gemma3-1b 6 layers f32"
     if not all(map(math.isfinite, losses + ref)):
         raise AssertionError(f"{label}: non-finite losses {losses}, {ref}")
-    # a random init with tied 0.02-scaled embeddings starts at ~ln(vocab)
-    if abs(losses[0] - math.log(gemma.vocab_size)) > 0.5:
+    # a random init with 0.02-scaled embeddings starts at ~ln(vocab)
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
         raise AssertionError(f"{label}: first loss {losses[0]}")
     if not (len(losses) == 9 and losses[:7] == ref[:7]
             and losses[7:] == ref[6:]
@@ -548,14 +643,8 @@ def phase_train(torch, train, launches, gemma, Stage) -> dict:
                              f"uninterrupted one: {losses} vs {ref}, crc "
                              f"{stats['params_crc']} vs "
                              f"{ref_stats['params_crc']}")
-    needs = ("delta_mask", "flash_attention", "flash_attention_bwd")
     if min(counts[k] for k in needs) <= 0 or counts != stats["launches"]:
         raise AssertionError(f"{label}: kernel launches {counts}")
-    full, full_stats = train.main(TRAIN_ARGS + [
-        "--arch", "gemma3-1b", "--steps", "2", "--ckpt-every", "0"])
-    torch.cuda.empty_cache()
-    if not all(map(math.isfinite, full)):
-        raise AssertionError(f"train gemma3-1b 26 layers: losses {full}")
     print(f"{label}: batch 4, seq 1024, 8 steps (+2 re-run after the "
           f"failover); step {stats['step_ms']:.1f} ms; {stats['saves']} "
           f"checkpoints {stats['ckpt_s']:.3f} s, of which delta scans "
@@ -568,12 +657,61 @@ def phase_train(torch, train, launches, gemma, Stage) -> dict:
           f"{stats['peak_bytes']} bytes ({stats['peak_bytes'] / 1e9:.2f} "
           f"GB); losses from step 6 and final params CRC equal; launches "
           f"{counts}", flush=True)
+    return counts
+
+
+def phase_train(torch, train, launches, get_config, Stage) -> dict:
+    """Train gemma3-1b's first superblock at full width with a node kill
+    and a bit-exact resume, then 2 steps of the whole model; then
+    jamba-1.5-large-398b-reduced with the same kill and resume, and 3 steps
+    of full-width Jamba-1.5-Large cut to its first layer. Returns the
+    kernel launches of the kill runs and the Jamba L0 run, summed."""
+    gemma = get_config("gemma3-1b")
+    cut = dataclasses.replace(gemma, stages=(
+        Stage(block=gemma.stages[0].block, repeat=1),))
+    counts = train_kill_and_resume(
+        torch, train, launches, "train gemma3-1b 6 layers f32", TRAIN_ARGS,
+        cut, ("delta_mask", "flash_attention", "flash_attention_bwd"))
+    full, full_stats = train.main(TRAIN_ARGS + [
+        "--arch", "gemma3-1b", "--steps", "2", "--ckpt-every", "0"])
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, full)):
+        raise AssertionError(f"train gemma3-1b 26 layers: losses {full}")
     print(f"train gemma3-1b 26 layers f32: batch 4, seq 1024, 2 steps; step "
           f"{full_stats['step_ms']:.1f} ms; loss {full[0]:.4f} -> "
           f"{full[-1]:.4f}; peak memory {full_stats['peak_bytes']} bytes "
           f"({full_stats['peak_bytes'] / 1e9:.2f} GB); launches "
           f"{full_stats['launches']}", flush=True)
-    return counts
+    # Jamba's hybrid superblock (7 Mamba, 1 attention, 4 MoE): small
+    # leaves, so 4096-byte delta blocks bring them to the delta_mask kernel
+    jcounts = train_kill_and_resume(
+        torch, train, launches, "train jamba-1.5-large-398b-reduced f32",
+        TRAIN_ARGS + ["--delta-block", "4096"],
+        get_config("jamba-1.5-large-398b-reduced"),
+        ("delta_mask", "flash_attention", "flash_attention_bwd", "ssm_scan",
+         "ssm_scan_bwd"))
+    jamba = get_config("jamba-1.5-large-398b")
+    l0 = dataclasses.replace(jamba, stages=(
+        Stage(block=jamba.stages[0].block[:1], repeat=1),))
+    for k in launches:
+        launches[k] = 0
+    losses, stats = train.main(TRAIN_ARGS + [
+        "--steps", str(JAMBA_TRAIN_STEPS), "--ckpt-every", "0"], cfg=l0)
+    lcounts = dict(launches)
+    torch.cuda.empty_cache()
+    label = "train jamba-1.5-large L0 (Mamba + dense) f32"
+    if not all(map(math.isfinite, losses)) \
+            or len(losses) != JAMBA_TRAIN_STEPS:
+        raise AssertionError(f"{label}: losses {losses}")
+    if min(lcounts[k] for k in ("ssm_scan", "ssm_scan_bwd")) <= 0 \
+            or lcounts != stats["launches"]:
+        raise AssertionError(f"{label}: kernel launches {lcounts}")
+    print(f"{label}: batch 4, seq 1024, {JAMBA_TRAIN_STEPS} steps, no "
+          f"checkpoints; step {stats['step_ms']:.1f} ms; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses}); peak memory "
+          f"{stats['peak_bytes']} bytes ({stats['peak_bytes'] / 1e9:.2f} GB)"
+          f"; launches {lcounts}", flush=True)
+    return {k: counts[k] + jcounts[k] + lcounts[k] for k in counts}
 
 
 def run_train_phase(torch) -> dict:
@@ -614,27 +752,29 @@ def main(argv) -> int:
     from repro_torch.configs.base import Stage
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.launch import serve, train
     from repro_torch.models.transformer import Model, RunConfig
     from repro_torch.weights import tree_leaves, tree_to_torch
 
     if argv == ["--train-phase"]:  # run_train_phase's process
-        print(json.dumps(phase_train(torch, train, ops.LAUNCHES,
-                                     get_config("gemma3-1b"), Stage)))
+        print(json.dumps(phase_train(torch, train, ops.LAUNCHES, get_config,
+                                     Stage)))
         return 0
     t0 = time.time()
     phase_device(torch)
     phase_build(_build)
     kernels = {"delta_mask": phase_delta(torch, ops, ref, changed_blocks),
                "flash_attention": phase_flash(torch, ops, ref),
-               "ssm_scan": phase_ssm(torch, ops, ref),
+               "ssm_scan": phase_ssm(torch, ops, ref, ssm),
                "flash_attention_bwd": phase_flash_bwd(torch, ops, ref,
-                                                      flash)}
+                                                      flash),
+               "ssm_scan_bwd": phase_ssm_bwd(torch, ref, ssm)}
     for arch in ("gemma3-1b-reduced", "jamba-1.5-large-398b-reduced"):
         phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
                         arch)
-    phase_train_reference(torch, Model, RunConfig, get_config, tree_to_torch,
-                          tree_leaves)
+        phase_train_reference(torch, Model, RunConfig, get_config,
+                              tree_to_torch, tree_leaves, arch)
     counts = phase_serve(torch, serve, ops.LAUNCHES, "serve gemma3-1b f32",
                          SERVE_ARGS, ("delta_mask", "flash_attention"),
                          get_config("gemma3-1b"))
@@ -660,6 +800,11 @@ def main(argv) -> int:
                  "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                  "src/repro/launch/train.py:36 (jax.value_and_grad of the "
                  "jnp chunked attention; the JAX package has no backward "
+                 "kernel)"),
+             "ssm_scan_bwd": (
+                 "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                 "src/repro/models/ssm.py:78 (jax.value_and_grad of the jnp "
+                 "associative scan; the JAX package has no backward "
                  "kernel)")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": where[name][0],

@@ -3,9 +3,10 @@
 A CPU tensor goes to the plain PyTorch version in ``ref.py``; a CUDA
 tensor goes to the hand-written kernel, which either launches or raises.
 There is no fallback from the card to the plain version. ``LAUNCHES``
-counts the kernel launches per kernel. ``flash_attention`` is
-differentiable: where a gradient is wanted, its backward runs
-``flash_attention_bwd_ref`` on the CPU and the backward kernel on the card.
+counts the kernel launches per kernel. ``flash_attention`` and
+``ssm_scan`` are differentiable: where a gradient is wanted, each backward
+runs its plain version (``flash_attention_bwd_ref``, ``ssm_scan_bwd_ref``)
+on the CPU and its backward kernel on the card.
 """
 from __future__ import annotations
 
@@ -84,11 +85,49 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     return _flash_forward(q, k, v, causal, window, scale)
 
 
+class _SSMScan(torch.autograd.Function):
+    """The forward and backward of ``ssm_scan``, each dispatched by device:
+    the plain versions on the CPU, the kernels on the card. On the card the
+    forward keeps the state entering every ``CHUNK`` steps, from which the
+    backward kernel recomputes the states (never from decay, which may be
+    0)."""
+
+    @staticmethod
+    def forward(ctx, decay, u, c, state0):
+        ctx.set_materialize_grads(False)  # the final state's may be None
+        if _route(decay, "ssm_scan") == "cpu":
+            y, final = ref.ssm_scan_ref(decay, u, c, state0)
+            ctx.save_for_backward(decay, u, c, state0)
+        else:
+            y, final, bounds = _ssm.ssm_scan_cuda(decay, u, c, state0,
+                                                  with_bounds=True)
+            ctx.save_for_backward(decay, u, c, bounds)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        decay, u, c, start = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(decay.shape[:3], dtype=torch.float32,
+                             device=decay.device)
+        if _route(decay, "ssm_scan") == "cpu":
+            return ref.ssm_scan_bwd_ref(decay, u, c, start, dy, dfinal)
+        if dfinal is not None:
+            dfinal = dfinal.contiguous()
+        return _ssm.ssm_scan_bwd_cuda(decay, u, c, start, dy.contiguous(),
+                                      dfinal)
+
+
 def ssm_scan(decay, u, c, state0):
-    """decay, u: (B, S, D, N), decay in (0, 1]; c: (B, S, N); state0:
+    """decay, u: (B, S, D, N), decay in [0, 1]; c: (B, S, N); state0:
     (B, D, N). Returns (y (B, S, D) f32, final state (B, D, N) f32):
-    ``s_t = decay_t*s_{t-1} + u_t``, ``y_t = sum_n s_t[..., n]*c_t[n]``."""
+    ``s_t = decay_t*s_{t-1} + u_t``, ``y_t = sum_n s_t[..., n]*c_t[n]``.
+    Differentiable in decay, u, c and state0; without a gradient (serving)
+    it runs the forward alone and keeps nothing for a backward."""
     _ssm.check_args(decay, u, c, state0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (decay, u, c, state0)):
+        return _SSMScan.apply(decay, u, c, state0)
     if _route(decay, "ssm_scan") == "cpu":
         return ref.ssm_scan_ref(decay, u, c, state0)
     return _ssm.ssm_scan_cuda(decay, u, c, state0)

@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the kernels (the correctness yardstick).
 
 Twins of ``repro/kernels/ref.py``: each is the mathematical definition,
-written for clarity, not speed; ``flash_attention_bwd_ref`` is the
-gradient of ``flash_attention_ref``, which the JAX package leaves to
-autodiff. The CPU tests run them, and ``chip_smoke.py`` holds each CUDA
-kernel against them on the card. On the main path they run only for
-tensors that lie on the CPU.
+written for clarity, not speed; ``flash_attention_bwd_ref`` and
+``ssm_scan_bwd_ref`` are the gradients of ``flash_attention_ref`` and
+``ssm_scan_ref``, which the JAX package leaves to autodiff. The CPU tests
+run them, and ``chip_smoke.py`` holds each CUDA kernel against them on the
+card. On the main path they run only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
@@ -78,7 +78,7 @@ def flash_attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
 def ssm_scan_ref(decay, u, c, state0):
     """Selective-scan oracle (the Mamba recurrence), sequential over S.
 
-    decay: (B, S, D, N) in (0, 1]; u: (B, S, D, N); c: (B, S, N);
+    decay: (B, S, D, N) in [0, 1]; u: (B, S, D, N); c: (B, S, N);
     state0: (B, D, N). Computes in f32 and returns
     (y (B, S, D) f32, final state (B, D, N) f32):
       s_t = decay_t * s_{t-1} + u_t ;  y_t = sum_n s_t[:, :, n] * c_t[n]
@@ -89,6 +89,35 @@ def ssm_scan_ref(decay, u, c, state0):
         s = decay[:, t].float() * s + u[:, t].float()
         ys.append(torch.einsum("bdn,bn->bd", s, c[:, t].float()))
     return torch.stack(ys, dim=1), s
+
+
+def ssm_scan_bwd_ref(decay, u, c, state0, dy, dfinal=None):
+    """The gradient of ``ssm_scan_ref``, as a reverse scan of the state's
+    adjoint in f32. dy: (B, S, D), the gradient of y; dfinal: (B, D, N),
+    the final state's (None: zeros). With s_{-1} = state0:
+      g_{S-1} = dy_{S-1} c_{S-1} + dfinal ;  g_t = dy_t c_t + decay_{t+1} g_{t+1}
+      d_u_t = g_t ;  d_decay_t = g_t s_{t-1} ;  d_c_t[n] = sum_d dy_t[d] s_t[d, n]
+      d_state0 = decay_0 g_0
+    Returns (d_decay, d_u (B, S, D, N), d_c (B, S, N), d_state0 (B, D, N)),
+    all f32."""
+    s = state0.float()
+    states = [s]  # s_{t-1} for t = 0 .. S
+    for t in range(decay.shape[1]):
+        s = decay[:, t].float() * s + u[:, t].float()
+        states.append(s)
+    g = torch.zeros_like(s) if dfinal is None else dfinal.float()
+    d_decay = torch.empty(decay.shape, dtype=torch.float32,
+                          device=decay.device)
+    d_u = torch.empty_like(d_decay)
+    d_c = torch.empty(c.shape, dtype=torch.float32, device=c.device)
+    dyf, cf = dy.float(), c.float()
+    for t in reversed(range(decay.shape[1])):
+        g = g + dyf[:, t, :, None] * cf[:, t, None, :]
+        d_u[:, t] = g
+        d_decay[:, t] = g * states[t]
+        d_c[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], states[t + 1])
+        g = decay[:, t].float() * g
+    return d_decay, d_u, d_c, g
 
 
 def delta_mask_ref(new, old, block: int):

@@ -5,11 +5,12 @@ the ``TokenPipeline``, with the Assise layer underneath: every
 --ckpt-every steps the train state (parameters and AdamW moments) is
 logged in delta mode through a 3-node Assise cluster, with the pipeline's
 cursor beside it; the changed-block scan runs on the ``delta_mask``
-kernel, and every attention layer's forward and backward on the
-flash-attention kernels. --inject-failure kills the worker process and
-its node after that many steps, restores the state from the cache replica
-and resumes, bit for bit as an uninterrupted run (the paper's failover,
-as a training concern). The train step runs with deterministic
+kernel, every attention layer's forward and backward on the
+flash-attention kernels, and every Mamba layer's recurrence on the
+``ssm_scan`` forward and backward kernels. --inject-failure kills the
+worker process and its node after that many steps, restores the state
+from the cache replica and resumes, bit for bit as an uninterrupted run
+(the paper's failover, as a training concern). The train step runs with deterministic
 algorithms, so that a resumed run repeats the uninterrupted one exactly.
 
 Example (on a machine with an NVIDIA H100):
@@ -103,6 +104,10 @@ def main(argv=None, cfg=None):
                     help="cluster directory (default: a fresh temporary "
                          "directory, removed at the end)")
     ap.add_argument("--no-delta", action="store_true")
+    ap.add_argument("--delta-block", type=int,
+                    default=CheckpointConfig.delta_block,
+                    help="bytes of a delta block; a leaf reaches the "
+                         "delta_mask kernel from 8 blocks up")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -112,7 +117,8 @@ def main(argv=None, cfg=None):
     dev = device_mod.resolve(args.device)
     model = Model(cfg, rc, device=dev)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=5)
-    ckpt_cfg = CheckpointConfig(mode=args.mode, delta=not args.no_delta)
+    ckpt_cfg = CheckpointConfig(mode=args.mode, delta=not args.no_delta,
+                                delta_block=args.delta_block)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     launches0 = dict(LAUNCHES)

@@ -1,12 +1,15 @@
 """State-space mixers: Mamba (Jamba's).
 
-Port of the Mamba half of ``repro/models/ssm.py``. Prefill computes the
-per-position decays and inputs in f32 and runs the recurrence through
-``kernels.ops.ssm_scan`` (the CUDA kernel on the card, its plain version on
-the CPU), where the JAX package runs a chunked associative scan in jnp: the
-kernel is sequential over S, so one launch covers the whole sequence from a
-zero state. Decode is a single-step state update in plain PyTorch, as in
-the JAX package. RWKV is not ported yet (ROADMAP, Queue 1).
+Port of the Mamba half of ``repro/models/ssm.py``. Train and prefill
+compute the per-position decays and inputs in f32 and run the recurrence
+through ``kernels.ops.ssm_scan`` (the CUDA kernel on the card, its plain
+version on the CPU), where the JAX package runs a chunked associative scan
+in jnp: the kernel is sequential over S, so one launch covers the whole
+sequence from a zero state. In training its gradient is the ``ssm_scan``
+backward kernel (the plain reverse scan on the CPU), where the JAX package
+differentiates its scan; the rest of the layer's gradient is autograd's.
+Decode is a single-step state update in plain PyTorch, as in the JAX
+package. RWKV is not ported yet (ROADMAP, Queue 1).
 
 Numerics: decays and states are f32; every decay is exp(negative) <= 1.
 The conv and SSM caches are updated in place.
@@ -96,7 +99,9 @@ def mamba_forward(params: dict, x: torch.Tensor, spec: MambaSpec,
     xc = F.silu(_causal_depthwise_conv(xu, params["conv_w"],
                                        params["conv_b"]).float()).to(x.dtype)
     decay_log, u, cmat = _mamba_ssm_params(params, xc, spec, d_model)
-    decay = decay_log.exp_()  # in place: decay_log is not needed again
+    # in place, in training too: decay_log is not needed again, and
+    # autograd's exp saves its result, the decay the scan keeps anyway
+    decay = decay_log.exp_()
     state0 = torch.zeros((x.shape[0], spec.d_inner(d_model), spec.d_state),
                          dtype=torch.float32, device=x.device)
     y, state = ops.ssm_scan(decay, u, cmat.contiguous(), state0)

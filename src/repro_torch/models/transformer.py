@@ -19,8 +19,7 @@ Three modes share one code path:
   - decode:  single token at position ``pos`` against the cache (in place)
 
 RWKV, MLA, modality front ends and additive position embeddings are not
-ported yet, nor Mamba training: they raise ``NotImplementedError``
-(ROADMAP, Queue 1).
+ported yet: they raise ``NotImplementedError`` (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -72,10 +71,6 @@ def check_supported(cfg: ArchConfig, mode: str = "prefill") -> None:
             raise NotImplementedError(
                 f"{cfg.name}: MLA is not ported yet "
                 "(ROADMAP: Queue 1, remaining mixers)")
-        if spec.kind == "mamba" and mode == "train":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba training needs an ssm_scan backward, "
-                "the next slice (ROADMAP: Queue 1, Mamba training)")
 
 
 # ===========================================================================

@@ -23,6 +23,7 @@ from repro.ckpt.delta import changed_blocks
 from repro_torch.ckpt.checkpoint import _changed_block_idxs
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import ssm_scan as ssm
 
 
 @pytest.fixture(scope="module")
@@ -715,6 +716,106 @@ def test_ssm_scan_kernel_rejects(cuda, bad):
         u = u.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         ops.ssm_scan(decay, u, c, s0)
+
+
+def _scan_grad_inputs(shape, seed, device):
+    """_scan_inputs with 5 % exact-zero decays, and dy, dfinal."""
+    b, s, d, n = shape
+    decay, u, c, s0 = _scan_inputs(shape, seed, device)
+    gen = torch.Generator(device).manual_seed(seed)
+    decay[torch.rand(decay.shape, generator=gen, device=device) < 0.05] = 0
+    dy = torch.randn((b, s, d), generator=gen, device=device)
+    dfinal = torch.randn((b, d, n), generator=gen, device=device)
+    return decay, u, c, s0, dy, dfinal
+
+
+_SCAN_BWD_SHAPES = pytest.mark.parametrize("shape", [
+    (4, 1024, 512, 16),  # Jamba's N, whole chunks
+    (2, 1000, 300, 16),  # ragged S (a last chunk of 8) and D
+    (1, 77, 33, 4),  # the reduced config's N
+    (2, 64, 17, 32), (3, 50, 9, 1), (1, 5, 3, 8)])  # one short chunk
+
+
+@pytest.mark.cuda
+@_SCAN_BWD_SHAPES
+def test_ssm_scan_kernel_boundary_states(cuda, shape):
+    """Asked for them, the forward kernel also writes the state entering
+    every 32 steps (state0 first), and its outputs are the same bits as
+    without them."""
+    decay, u, c, s0 = _scan_inputs(shape, seed=shape[1], device=cuda)
+    y, fin, bounds = ssm.ssm_scan_cuda(decay, u, c, s0, with_bounds=True)
+    y2, fin2 = ssm.ssm_scan_cuda(decay, u, c, s0)
+    states = [s0]
+    for t in range(0, shape[1] - 1):
+        _, st = ref.ssm_scan_ref(decay[:, t:t + 1], u[:, t:t + 1],
+                                 c[:, t:t + 1], states[-1])
+        states.append(st)
+    exp = torch.stack(states[::ssm.CHUNK], dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+    assert bounds.shape == exp.shape
+    assert torch.equal(bounds[:, 0], s0)
+    torch.testing.assert_close(bounds, exp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@_SCAN_BWD_SHAPES
+@pytest.mark.parametrize("with_dfinal", [False, True])
+def test_ssm_scan_bwd_kernel(cuda, shape, with_dfinal):
+    """From the forward kernel's boundary states, against the plain reverse
+    scan, exact-zero decays included: within 1e-4 of each gradient's
+    largest element, and the same bits from two launches (no atomics)."""
+    decay, u, c, s0, dy, dfinal = _scan_grad_inputs(shape, shape[1], cuda)
+    dfinal = dfinal if with_dfinal else None
+    _, _, bounds = ssm.ssm_scan_cuda(decay, u, c, s0, with_bounds=True)
+    before = ops.LAUNCHES["ssm_scan_bwd"]
+    got = ssm.ssm_scan_bwd_cuda(decay, u, c, bounds, dy, dfinal)
+    again = ssm.ssm_scan_bwd_cuda(decay, u, c, bounds, dy, dfinal)
+    exp = ref.ssm_scan_bwd_ref(decay, u, c, s0, dy, dfinal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssm_scan_bwd"] == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _assert_grads_close([g.cpu() for g in got], [e.cpu() for e in exp],
+                        rel=BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_through_autograd(cuda):
+    """``ops.ssm_scan`` under autograd on the card: one forward launch that
+    keeps its boundary states, one backward launch, and the gradients of
+    autograd through the plain version."""
+    ins = [t.requires_grad_() for t in _scan_inputs((2, 100, 40, 16),
+                                                    seed=4, device=cuda)]
+    dy = torch.randn(2, 100, 40, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5))
+    before = dict(ops.LAUNCHES)
+    y, _ = ops.ssm_scan(*ins)
+    got = torch.autograd.grad(y, ins, dy)
+    assert ops.LAUNCHES["ssm_scan"] == before["ssm_scan"] + 1
+    assert ops.LAUNCHES["ssm_scan_bwd"] == before["ssm_scan_bwd"] + 1
+    exp = torch.autograd.grad(ref.ssm_scan_ref(*ins)[0], ins, dy)
+    _assert_grads_close([g.cpu() for g in got], [e.cpu() for e in exp],
+                        rel=BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["bfloat16", "n3", "bounds", "strided"])
+def test_ssm_scan_bwd_kernel_rejects(cuda, bad):
+    """The backward kernel takes float32, contiguous inputs, N a power of
+    two and the forward's (B, ceil(S/32), D, N) boundary states; any other
+    input raises, with no launch and no other path."""
+    n = 3 if bad == "n3" else 8
+    decay, u, c, s0, dy, _ = _scan_grad_inputs((2, 40, 8, n), 0, cuda)
+    bounds = torch.zeros(2, 1 if bad == "bounds" else 2, 8, n, device=cuda)
+    if bad == "bfloat16":
+        u = u.to(torch.bfloat16)
+    if bad == "strided":
+        dy = dy.transpose(1, 2).contiguous().transpose(1, 2)
+    before = ops.LAUNCHES["ssm_scan_bwd"]
+    with pytest.raises(ValueError):
+        ssm.ssm_scan_bwd_cuda(decay, u, c, bounds, dy)
+    assert ops.LAUNCHES["ssm_scan_bwd"] == before
 
 
 # The backward kernel against its plain version on the card: f32 sums of up

@@ -1,12 +1,16 @@
-"""The port's selective scan and Mamba mixer against the JAX package.
+"""The port's selective scan, its gradient and the Mamba mixer against
+the JAX package.
 
 Inputs and weights are made from a seed with numpy and handed to both
 packages; everything runs in float32 on the CPU, where the port's
-``ops.ssm_scan`` runs its plain sequential version. The JAX Mamba prefill
-runs a chunked associative scan, the port one sequential scan: the sums
-are taken in another order, so the tolerances are a few float32 ulps of
-the outputs' scale, not zero.
+``ops.ssm_scan`` runs its plain sequential version and, under autograd,
+its plain backward (``ssm_scan_bwd_ref``). The JAX Mamba prefill runs a
+chunked associative scan, the port one sequential scan: the sums are taken
+in another order, so the tolerances are a few float32 ulps of the outputs'
+scale, not zero. The JAX package has no scan backward of its own: its
+gradients here are ``jax.vjp``'s and ``jax.grad``'s.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,6 +53,166 @@ def test_ssm_scan_ref_matches_jax(b, s, d, n):
     assert y.dtype == fin.dtype == torch.float32
     _close(y, jy)
     _close(fin, jfin)
+
+
+def _scan_grad_inputs(b, s, d, n, seed):
+    """_scan_inputs with a few exact-zero decays (exp(dt*A) underflows to 0
+    in f32 where dt*A < -104), and the output cotangents."""
+    decay, u, c, s0 = _scan_inputs(b, s, d, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    decay[rng.random(decay.shape) < 0.05] = 0.0
+    dy = rng.standard_normal((b, s, d)).astype(np.float32)
+    dfinal = rng.standard_normal((b, d, n)).astype(np.float32)
+    return decay, u, c, s0, dy, dfinal
+
+
+def _assert_grads_close(got, exp, rel=1e-5):
+    """Each gradient within ``rel`` of its largest element."""
+    for g, e in zip(got, exp):
+        g = g.detach().numpy() if isinstance(g, torch.Tensor) else g
+        e = np.asarray(e, np.float32)
+        assert g.shape == e.shape
+        np.testing.assert_allclose(g, e, rtol=0, atol=rel * np.abs(e).max())
+
+
+_GRAD_SHAPES = pytest.mark.parametrize("b,s,d,n", [
+    (1, 16, 8, 4), (2, 37, 5, 16), (2, 70, 19, 4), (1, 33, 3, 16)])
+
+
+@_GRAD_SHAPES
+@pytest.mark.parametrize("with_dfinal", [False, True])
+def test_ssm_scan_bwd_ref_matches_jax_vjp(b, s, d, n, with_dfinal):
+    """The plain backward against ``jax.vjp`` of the JAX package's
+    ``ssm_scan_ref``, with the final state's cotangent zero (training) or
+    not, ragged S and D, and exact-zero decays."""
+    decay, u, c, s0, dy, dfinal = _scan_grad_inputs(b, s, d, n, seed=s + n)
+    if not with_dfinal:
+        dfinal = np.zeros_like(dfinal)
+    _, vjp = jax.vjp(jref.ssm_scan_ref,
+                     *(jnp.asarray(a) for a in (decay, u, c, s0)))
+    exp = vjp((jnp.asarray(dy), jnp.asarray(dfinal)))
+    got = ref.ssm_scan_bwd_ref(
+        *(torch.from_numpy(a) for a in (decay, u, c, s0, dy)),
+        torch.from_numpy(dfinal) if with_dfinal else None)
+    assert all(g.dtype == torch.float32 for g in got)
+    _assert_grads_close(got, exp)
+
+
+@_GRAD_SHAPES
+def test_ssm_scan_autograd_matches_plain_autograd(b, s, d, n):
+    """``ops.ssm_scan`` under autograd (its backward is ``ssm_scan_bwd_ref``
+    on the CPU) gives the gradients that autograd takes through
+    ``ssm_scan_ref``, from y alone (training: the final state's gradient
+    is absent), from the final state alone, or from both."""
+    arrs = _scan_grad_inputs(b, s, d, n, seed=s)
+    ins = [torch.from_numpy(a).requires_grad_() for a in arrs[:4]]
+    dy, dfinal = (torch.from_numpy(a) for a in arrs[4:])
+    for used in ((0,), (1,), (0, 1)):
+        outs, ref_outs = ops.ssm_scan(*ins), ref.ssm_scan_ref(*ins)
+        assert outs[0].grad_fn is not None
+        cots = [(dy, dfinal)[i] for i in used]
+        got = torch.autograd.grad([outs[i] for i in used], ins, cots)
+        # the final state alone does not depend on c: a zero gradient
+        exp = torch.autograd.grad([ref_outs[i] for i in used], ins, cots,
+                                  materialize_grads=True)
+        _assert_grads_close(got, exp)
+
+
+def _emulated_ssm_bwd(decay, u, c, s0, dy, chunk=32, d_per_block=None):
+    """ssm_scan_bwd.cu's schedule in plain PyTorch: the forward's boundary
+    states every ``chunk`` steps (s_{k*chunk-1}, s_{-1} = state0), then
+    chunks from last to first, each recomputed forward from its boundary
+    state and walked in reverse with the adjoint g carried across chunks;
+    d_c as per-block partials over ``d_per_block`` d's (256 / N, the
+    kernel's block), added in block order. A ragged last chunk."""
+    b, s, d, n = decay.shape
+    d_per_block = d_per_block or 256 // n
+    n_blocks = -(-d // d_per_block)
+    bounds, st = [], s0
+    for t in range(s):  # the forward kernel: the state entering each chunk
+        if t % chunk == 0:
+            bounds.append(st)
+        st = decay[:, t] * st + u[:, t]
+    d_decay, d_u = torch.empty_like(decay), torch.empty_like(u)
+    parts = torch.zeros(b, s, n_blocks, n)
+    g = torch.zeros_like(s0)
+    for k in reversed(range(len(bounds))):
+        t0, t1 = k * chunk, min(k * chunk + chunk, s)
+        states = [bounds[k]]
+        for t in range(t0, t1):
+            states.append(decay[:, t] * states[-1] + u[:, t])
+        for j in reversed(range(t1 - t0)):
+            t = t0 + j
+            g = g + dy[:, t, :, None] * c[:, t, None, :]
+            d_u[:, t] = g
+            d_decay[:, t] = g * states[j]
+            p = dy[:, t, :, None] * states[j + 1]  # (b, d, n)
+            for blk in range(n_blocks):
+                sl = slice(blk * d_per_block, (blk + 1) * d_per_block)
+                parts[:, t, blk] = p[:, sl].sum(dim=1)
+            g = decay[:, t] * g
+    d_c = parts[:, :, 0]
+    for blk in range(1, n_blocks):
+        d_c = d_c + parts[:, :, blk]
+    return d_decay, d_u, d_c, g
+
+
+@pytest.mark.parametrize("b,s,d,n,d_per_block", [
+    (2, 70, 19, 4, 8),  # three chunks, the last ragged; a ragged block
+    (1, 64, 40, 16, 16),  # whole chunks; Jamba's N and block of 16 d's
+    (2, 5, 9, 2, 4)])  # one short chunk
+def test_chunked_schedule_matches_plain(b, s, d, n, d_per_block):
+    """The backward kernel's arithmetic, emulated on the CPU, against the
+    plain reverse scan: states recomputed from boundary states are the
+    forward's (exact-zero decays included), and the per-block d_c partials
+    add up to the plain sum."""
+    decay, u, c, s0, dy, _ = (torch.from_numpy(a) for a in
+                              _scan_grad_inputs(b, s, d, n, seed=3 * s))
+    got = _emulated_ssm_bwd(decay, u, c, s0, dy, d_per_block=d_per_block)
+    exp = ref.ssm_scan_bwd_ref(decay, u, c, s0, dy)
+    _assert_grads_close(got, exp)
+    # the adjoint and d_u/d_decay never divide by a decay
+    assert (decay == 0).any() and all(torch.isfinite(t).all() for t in got)
+
+
+def test_ssm_scan_without_grad_saves_nothing():
+    """Serving (no gradient) runs the forward alone: no autograd node."""
+    ins = [torch.from_numpy(a).requires_grad_() for a in
+           _scan_inputs(1, 8, 4, 4, seed=0)]
+    with torch.no_grad():
+        y, fin = ops.ssm_scan(*ins)
+    assert y.grad_fn is None and fin.grad_fn is None
+    y, fin = ops.ssm_scan(*ins)
+    assert y.grad_fn is not None and y.grad_fn is fin.grad_fn
+
+
+def test_mamba_exponentiates_in_place(monkeypatch):
+    """``mamba_forward`` turns decay_log into the decay in place, serving
+    and training alike (no second (B, S, di, ds) f32 tensor): the decay the
+    scan gets was written once after it was made. Under autograd that
+    in-place exp gives the gradients of an out-of-place one, bit for
+    bit."""
+    pp = {k: torch.from_numpy(v) for k, v in _mamba_params(8).items()}
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 20, D_MODEL)).astype(np.float32))
+    seen = []
+    real = ops.ssm_scan
+    monkeypatch.setattr(ops, "ssm_scan",
+                        lambda decay, *a: seen.append(decay._version)
+                        or real(decay, *a))
+    with torch.no_grad():
+        pssm.mamba_forward(pp, x, PSpec(**SPEC_KW), D_MODEL)
+    for v in pp.values():
+        v.requires_grad_(True)
+    leaves = list(pp.values())
+    out, _ = pssm.mamba_forward(pp, x, PSpec(**SPEC_KW), D_MODEL)
+    in_place = torch.autograd.grad(out.sum(), leaves)
+    assert seen == [1, 1]
+    monkeypatch.setattr(torch.Tensor, "exp_", torch.Tensor.exp)
+    out, _ = pssm.mamba_forward(pp, x, PSpec(**SPEC_KW), D_MODEL)
+    out_of_place = torch.autograd.grad(out.sum(), leaves)
+    assert seen[-1] == 0
+    assert all(torch.equal(a, b) for a, b in zip(in_place, out_of_place))
 
 
 def test_ssm_scan_carries_state0():
@@ -139,6 +303,33 @@ def test_mamba_forward_without_cache():
                                   D_MODEL)
     assert jc is None and pc is None
     _close(pout, jout, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("s", [40, 23])
+def test_mamba_forward_grads_match_jax(s):
+    """The Mamba layer's gradients (every weight and the input) against
+    ``jax.grad`` of the JAX package's ``mamba_forward`` (a chunked
+    associative scan, chunks of 16) on the same weights and cotangent: the
+    port's run through the scan's backward."""
+    p = _mamba_params(10)
+    jp, pp = _both(p)
+    rng = np.random.default_rng(s + 1)
+    x = rng.standard_normal((2, s, D_MODEL)).astype(np.float32)
+    dout = rng.standard_normal((2, s, D_MODEL)).astype(np.float32)
+
+    def jloss(params, xx):
+        out, _ = jssm.mamba_forward(params, xx, JSpec(**SPEC_KW), D_MODEL,
+                                    chunk=16)
+        return jnp.sum(out * dout)
+    jg, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    names = sorted(pp)
+    for k in names:
+        pp[k].requires_grad_(True)
+    out, _ = pssm.mamba_forward(pp, xt, PSpec(**SPEC_KW), D_MODEL)
+    got = torch.autograd.grad(out, [pp[k] for k in names] + [xt],
+                              torch.from_numpy(dout))
+    _assert_grads_close(got, [jg[k] for k in names] + [jgx])
 
 
 def test_mamba_decode_matches_jax():

@@ -6,7 +6,6 @@ Inputs come from a seed with numpy; the JAX parameters are handed to the
 port as numpy (``repro_torch.weights``). Everything runs in float32.
 """
 import dataclasses
-import functools
 import json
 
 import jax
@@ -72,12 +71,15 @@ def _grads_by_name(params, grads):
 @pytest.mark.parametrize("arch,repeat0", [
     ("gemma3-1b-reduced", 1), ("gemma3-1b-reduced", 2),
     ("deepseek-moe-16b-reduced", 1), ("qwen1.5-32b-reduced", 1),
-    ("stablelm-12b-reduced", 1), ("phi3.5-moe-42b-a6.6b-reduced", 1)])
+    ("stablelm-12b-reduced", 1), ("phi3.5-moe-42b-a6.6b-reduced", 1),
+    ("jamba-1.5-large-398b-reduced", 1)])
 def test_loss_and_grads_match_jax(arch, repeat0, small_rc):
     """The loss, its parts and every gradient leaf against
     ``jax.value_and_grad(loss_fn)``. gemma3-1b with a first stage of
     repeat 2 runs the recomputed (remat) stage, as JAX's checkpointed
-    scan; the MoE archs carry the aux loss."""
+    scan; the MoE archs carry the aux loss; Jamba's seven Mamba layers run
+    the scan's backward (``ssm_scan_bwd_ref``), where JAX differentiates
+    its chunked associative scan."""
     jcfg, pcfg = _configs(arch, repeat0)
     jparams = jtf.init_params(jcfg, jax.random.key(0), small_rc)
     batch = _batch(jcfg.vocab_size)
@@ -174,10 +176,8 @@ def test_train_step_tracks_jax(tmp_path, monkeypatch):
 
 @pytest.fixture()
 def small_blocks(monkeypatch):
-    """256-byte delta blocks (2 KiB tiles), so that the reduced model's
-    leaves reach the delta_mask path; counts its calls."""
-    monkeypatch.setattr(ptrain, "CheckpointConfig", functools.partial(
-        pckpt.CheckpointConfig, delta_block=256))
+    """The delta block of each delta_mask call; with ``--delta-block 256``
+    (2 KiB tiles) the reduced model's leaves reach the delta_mask path."""
     calls = []
     real = pckpt.delta_mask
 
@@ -189,12 +189,12 @@ def small_blocks(monkeypatch):
     return calls
 
 
-def test_failover_resume_is_bit_exact(small_blocks, tmp_path):
+def _check_failover_resume(arch, small_blocks, tmp_path):
     """Checkpoints every 3 steps, a kill after step 7, a restore from the
     replica (train state and pipeline cursor): the resumed steps' losses
     and the final parameters equal an uninterrupted run's bit for bit."""
-    args = ["--device", "cpu", "--arch", "gemma3-1b-reduced", "--steps",
-            "8", "--batch", "2", "--seq", "32"]
+    args = ["--device", "cpu", "--arch", arch, "--steps", "8", "--batch",
+            "2", "--seq", "32", "--delta-block", "256"]
     losses, stats = ptrain.main(args + [
         "--ckpt-every", "3", "--inject-failure", "7",
         "--workdir", str(tmp_path / "a")])
@@ -211,16 +211,32 @@ def test_failover_resume_is_bit_exact(small_blocks, tmp_path):
     assert 0 < stats["bytes_logged"] <= stats["bytes_full"]
     assert stats["launches"] == {k: 0 for k in stats["launches"]}
     assert stats["peak_bytes"] is None
+    return losses
 
 
-def test_mamba_training_raises():
-    cfg = port_get_config("jamba-1.5-large-398b-reduced")
-    model = ptf.Model(cfg, PORT_RC, device=CPU)  # serving is supported
-    params = model.init(0)
-    batch = {k: torch.from_numpy(v) for k, v in
-             _batch(cfg.vocab_size, s=16).items()}
-    with pytest.raises(NotImplementedError, match="ssm_scan backward"):
-        model.loss(params, batch)
+def test_failover_resume_is_bit_exact(small_blocks, tmp_path):
+    _check_failover_resume("gemma3-1b-reduced", small_blocks, tmp_path)
+
+
+def test_jamba_failover_resume_is_bit_exact(small_blocks, tmp_path):
+    """The same kill and resume on Jamba's hybrid superblock: seven Mamba
+    layers train through the scan's backward, the attention layer through
+    flash attention's, and four MoE layers carry the aux loss; A_log, D and
+    their AdamW moments go through the checkpoint with every other
+    leaf."""
+    losses = _check_failover_resume("jamba-1.5-large-398b-reduced",
+                                    small_blocks, tmp_path)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_unported_mixers_raise_in_train_mode():
+    """Mamba trains (Jamba passes the train-mode check); RWKV is not ported
+    and still raises, in train mode as in serving."""
+    ptf.check_supported(port_get_config("jamba-1.5-large-398b-reduced"),
+                        "train")
+    cfg = port_get_config("rwkv6-1.6b-reduced")
+    with pytest.raises(NotImplementedError, match="rwkv"):
+        ptf.check_supported(cfg, "train")
 
 
 def test_train_defaults_to_the_card():
