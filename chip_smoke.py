@@ -11,11 +11,14 @@ Phases, one printed line each; any failure raises and exits non-zero:
              version and the host scan, exactly; kernel, plain and bound ms
   flash      the flash-attention kernel at the gemma3-1b prefill shapes
              (B=4, H=4, Hk=1, S=1024, D=256; window 512 and none; f32 and
-             bf16; ragged S=1000) and at Jamba's (bf16, B=4, H=64, Hk=8,
-             S=1024, D=128, global) against its plain version; kernel,
-             plain, bound and library (scaled_dot_product_attention) ms;
-             each line names the kernel's path, mma (bf16) or tf32 (f32 as
-             3xTF32), both on tensor cores, and the rate its bound assumes
+             bf16; ragged S=1000), at Jamba's (bf16, B=4, H=64, Hk=8,
+             S=1024, D=128, global) and at minicpm3-4b's MLA heads (f32
+             and bf16, B=4, H=Hk=40, S=1024, D=96, Dv=64) against its plain
+             version; kernel, plain, bound and library
+             (scaled_dot_product_attention) ms; each line names the
+             kernel's path, mma (bf16) or tf32 (f32 as 3xTF32), both on
+             tensor cores, the rate its bound assumes, and where the head
+             is padded to the kernel's tile, the bound of the padded work
   ssm_scan   the selective-scan kernel at the Jamba prefill shape (f32,
              B=4, S=1024, D=16384, N=16) and a ragged one (S=1000,
              D=16376) against its plain version; kernel, plain, bound ms,
@@ -28,14 +31,16 @@ Phases, one printed line each; any failure raises and exits non-zero:
              computes it)
   flash_bwd  the flash-attention backward kernel at gemma3-1b's train
              shapes (f32, B=4, H=4, Hk=1, S=1024, D=256; window 512 and
-             none; ragged S=1000), fed the forward kernel's output and
+             none; ragged S=1000) and minicpm3-4b's (f32, B=4, H=Hk=40,
+             S=1024, D=96, Dv=64), fed the forward kernel's output and
              log-sum-exp, against its plain version; two launches
              bit-equal; kernel, plain, bound and library (the backward of
              scaled_dot_product_attention) ms; each line names the path,
              tf32 (3xTF32 mma.sync)
-  reference  gemma3-1b-reduced and jamba-1.5-large-398b-reduced prefill +
-             decode on the card against the same weights on the CPU, f32;
-             both archs' train loss and gradients likewise
+  reference  gemma3-1b-reduced, jamba-1.5-large-398b-reduced,
+             rwkv6-1.6b-reduced and minicpm3-4b-reduced prefill + decode on
+             the card against the same weights on the CPU, f32; each
+             arch's train loss and gradients likewise
   serve      full-width gemma3-1b (f32) through repro_torch.launch.serve:
              batch 4, prompt 1024, 32 tokens, a delta snapshot every 8, a
              node kill and failover at 20; tokens and final logits equal to
@@ -45,6 +50,11 @@ Phases, one printed line each; any failure raises and exits non-zero:
              superblock at full width, in bf16 (Mamba + dense, Mamba + MoE,
              Mamba + dense, attention + MoE: 23.0e9 parameters);
              ssm_scan, flash_attention and delta_mask launched on that path
+  rwkv6      the same serve of full-width rwkv6-1.6b (f32, 24 layers, a
+             52 MB session state of shifts and wkv states): delta_mask
+  minicpm3   the same serve of full-width minicpm3-4b (f32, 62 MLA
+             layers, a compressed 302 MB cache): delta_mask and
+             flash_attention (D=96, Dv=64) launched on that path
   train      full-width gemma3-1b (f32, the 262,144 vocabulary) cut to its
              first superblock (6 layers, 5 local + 1 global) through
              repro_torch.launch.train: batch 4, seq 1024, 8 steps, a delta
@@ -58,12 +68,19 @@ Phases, one printed line each; any failure raises and exits non-zero:
              checkpoints, kill and bit-exact resume, all five kernels
              launched; then full-width Jamba-1.5-Large cut to its first
              layer (Mamba + dense SwiGLU, 2.10e9 parameters), 3 steps
-             without checkpoints. It runs in a child process with
+             without checkpoints; then rwkv6-1.6b-reduced and
+             minicpm3-4b-reduced with the same kill and bit-exact resume
+             (4096-byte delta blocks; MLA launches flash_attention and
+             its backward), and 2 steps each of the whole rwkv6-1.6b and
+             of full-width minicpm3-4b cut to its first 8 layers (one
+             stacked stage, recomputed). It runs in a child process with
              CUBLAS_WORKSPACE_CONFIG set, which the deterministic train
              step needs and which would slow the serve phases' decode
-Then one JSON line with every kernel's numbers (launches summed over the
-main-path runs: two serve runs and two train runs with a node kill, and
-the Jamba L0 train run; flash_attention's entry is gemma3-1b's f32 case,
+Each serve and train line ends with its phase's seconds. Then one JSON
+line with every kernel's numbers (launches summed over the main-path
+runs: the four serve runs with a node kill, the four train runs with a
+node kill, and the Jamba L0, rwkv6-1.6b and minicpm3 8-layer train runs;
+flash_attention's entry is gemma3-1b's f32 case,
 flash_attention_bwd's its window-512 train case, each with every case
 under "cases"), and the last line {"ok": true, "device": {...}}. Times are
 CUDA-event medians of 20 runs.
@@ -99,6 +116,10 @@ JAMBA_LAYERS = 4  # of the 8-layer superblock: one superblock is 90.5 GB
 TRAIN_ARGS = ["--batch", "4", "--seq", "1024", "--lr", "1e-3"]
 KILL_ARGS = ["--steps", "8", "--ckpt-every", "3", "--inject-failure", "7"]
 JAMBA_TRAIN_STEPS = 3  # the full-width L0 cut, without checkpoints
+RWKV_ARGS = ["--arch", "rwkv6-1.6b"] + SERVE_ARGS[2:]
+MINICPM_ARGS = ["--arch", "minicpm3-4b"] + SERVE_ARGS[2:]
+# of 62: the whole model's 66 GB train state leaves no room for activations
+MINICPM_TRAIN_LAYERS = 8
 
 
 def time_ms(torch, fn) -> float:
@@ -208,23 +229,32 @@ def _attn_work(b, h, hk, s, d, dv, window, itemsize):
     return flops, nbytes
 
 
+def _head_tile(d, dv):
+    """The head width both flash kernels compute at: max(D, Dv) rounded up
+    to 64, 128 or 256, the zero-filled columns included."""
+    return next(t for t in (64, 128, 256) if max(d, dv) <= t)
+
+
 def phase_flash(torch, ops, ref) -> dict:
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    gemma = (4, 4, 1, 256)  # B, H, Hk, D of gemma3-1b's prefill
+    gemma = (4, 4, 1, 256, 256)  # B, H, Hk, D, Dv of gemma3-1b's prefill
+    mla = (4, 40, 40, 96, 64)  # minicpm3-4b's MLA: 64 nope + 32 rope; v 64
     cases = [(gemma, torch.float32, 1024, 512),
              (gemma, torch.float32, 1024, None),
              (gemma, torch.bfloat16, 1024, 512),
              (gemma, torch.bfloat16, 1024, None),
              (gemma, torch.float32, 1000, 512),
              (gemma, torch.bfloat16, 1000, None),
-             ((4, 64, 8, 128), torch.bfloat16, 1024, None)]  # Jamba's
+             ((4, 64, 8, 128, 128), torch.bfloat16, 1024, None),  # Jamba's
+             (mla, torch.float32, 1024, None),
+             (mla, torch.bfloat16, 1024, None)]
     results = {}
-    for (b, h, hk, d), dtype, s, window in cases:
+    for (b, h, hk, d, dv), dtype, s, window in cases:
         gen = torch.Generator(device=dev).manual_seed(s + (window or 0) + h)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((b, h, s, d), (b, hk, s, d),
-                                 (b, hk, s, d)))
+                                 (b, hk, s, dv)))
         out = ops.flash_attention(q, k, v, window=window)
         exp = ref.flash_attention_ref(q, k, v, window=window)
         torch.cuda.synchronize()
@@ -252,19 +282,27 @@ def phase_flash(torch, ops, ref) -> dict:
                                                       attn_mask=allowed)
         library_ms = time_ms(torch, lib)
         name = str(dtype).split(".")[-1]
-        flops, nbytes = _attn_work(b, h, hk, s, d, d, window,
+        flops, nbytes = _attn_work(b, h, hk, s, d, dv, window,
                                    q.element_size())
         t_ops = flops / PEAK_FLOPS[name] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
         path = "mma" if dtype == torch.bfloat16 else "tf32"
-        label = (f"{name} B={b} H={h} Hk={hk} S={s} D={d} window={window} "
-                 f"{path}")
+        label = (f"{name} B={b} H={h} Hk={hk} S={s} D={d}"
+                 f"{'' if dv == d else f' Dv={dv}'} window={window} {path}")
         rate = f"at {PEAK_FLOPS[name] / 1e12:.1f} TFLOP/s"
         if dtype == torch.float32:
             rate += (f" (3xTF32); at the CUDA-core "
                      f"{CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s "
                      f"{max(flops / CUDA_CORE_F32_FLOPS * 1e3, t_bytes):.4f}"
+                     f" ms")
+        tile = _head_tile(d, dv)
+        if tile != d or tile != dv:  # both products run tile columns wide
+            padded = flops * 2 * tile / (d + dv)
+            rate += (f"; the kernel computes at head width {tile}: "
+                     f"{(d + dv) / (2 * tile):.1%} of its products are "
+                     f"real, bound at the padded work "
+                     f"{max(padded / PEAK_FLOPS[name] * 1e3, t_bytes):.4f}"
                      f" ms")
         print(f"flash_attention[{label}]: max_abs_err {err:.3e} (tol "
               f"{tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
@@ -293,18 +331,23 @@ def phase_flash(torch, ops, ref) -> dict:
 
 def phase_flash_bwd(torch, ops, ref, flash) -> dict:
     """The backward kernel at gemma3-1b's train shapes (f32): local layers
-    (window 512), the global layer, and a ragged S. Its bound counts the
-    five products (Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over the pairs the
-    band holds."""
+    (window 512), the global layer, and a ragged S; then at minicpm3-4b's
+    MLA heads (D = 96, Dv = 64, H = Hk = 40). Its bound counts the five
+    products (Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over the pairs the band
+    holds."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    b, h, hk, d = 4, 4, 1, 256
+    gemma, mla = (4, 4, 1, 256, 256), (4, 40, 40, 96, 64)
     results = {}
-    for s, window in ((1024, 512), (1024, None), (1000, 512)):
-        gen = torch.Generator(device=dev).manual_seed(7 * s + (window or 0))
+    for (b, h, hk, d, dv), s, window in ((gemma, 1024, 512),
+                                         (gemma, 1024, None),
+                                         (gemma, 1000, 512),
+                                         (mla, 1024, None)):
+        gen = torch.Generator(device=dev).manual_seed(7 * s + (window or 0)
+                                                      + h)
         q, k, v = (torch.randn(shape, generator=gen, device=dev)
-                   for shape in ((b, h, s, d), (b, hk, s, d), (b, hk, s, d)))
-        dout = torch.randn((b, h, s, d), generator=gen, device=dev)
+                   for shape in ((b, h, s, d), (b, hk, s, d), (b, hk, s, dv)))
+        dout = torch.randn((b, h, s, dv), generator=gen, device=dev)
         # the forward kernel's output and log-sum-exp, as training keeps them
         out, lse = flash.flash_attention_cuda(q, k, v, causal=True,
                                               window=window, scale=None,
@@ -342,14 +385,23 @@ def phase_flash_bwd(torch, ops, ref, flash) -> dict:
         library_ms = time_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qr, kr, vr), dout, retain_graph=True))
         pairs = sum(min(r + 1, window or s) for r in range(s))
-        flops = b * h * pairs * 2 * (3 * d + 2 * d)
-        nbytes = 4 * (2 * b * h * s * d + 2 * b * hk * s * 2 * d
-                      + 2 * b * h * s * d)  # q, dq; k, v, dk, dv; o, dO
+        flops = b * h * pairs * 2 * (3 * d + 2 * dv)
+        nbytes = 4 * (2 * b * h * s * d + 2 * b * hk * s * (d + dv)
+                      + 2 * b * h * s * dv)  # q, dq; k, v, dk, dv; o, dO
         t_ops = flops / PEAK_FLOPS["float32"] * 1e3
         t_core = flops / CUDA_CORE_F32_FLOPS * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        label = (f"f32 B={b} H={h} Hk={hk} S={s} D={d} window={window} "
-                 f"tf32")
+        label = (f"f32 B={b} H={h} Hk={hk} S={s} D={d}"
+                 f"{'' if dv == d else f' Dv={dv}'} window={window} tf32")
+        tile = _head_tile(d, dv)
+        padded = ""
+        if tile != d or tile != dv:  # each product runs tile columns wide
+            t_pad = flops * 5 * tile / (3 * d + 2 * dv) \
+                / PEAK_FLOPS["float32"] * 1e3
+            padded = (f"; the kernel computes its five products at head "
+                      f"width {tile} ({(3 * d + 2 * dv) / (5 * tile):.1%} "
+                      f"of them real), bound at the padded work "
+                      f"{max(t_pad, t_bytes):.4f} ms")
         print(f"flash_attention_bwd[{label}]: max_abs_err {err:.3e} (tol "
               f"{BWD_TOL:g} of each gradient's max); two launches bit-equal; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
@@ -357,19 +409,19 @@ def phase_flash_bwd(torch, ops, ref, flash) -> dict:
               f"{PEAK_FLOPS['float32'] / 1e12:.1f} TFLOP/s (3xTF32), "
               f"{max(t_core, t_bytes):.4f} ms at the CUDA-core "
               f"{CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s, bytes "
-              f"{t_bytes:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)",
+              f"{t_bytes:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s){padded}",
               flush=True)
         if not ok:
             raise AssertionError(f"flash_attention_bwd {label}: max abs err "
                                  f"{err}")
-        results[(s, window)] = {
+        results[(s, window, h)] = {
             "label": label, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
         del q, k, v, dout, out, lse, got, again, exp, qr, kr, vr, o_lib
         torch.cuda.empty_cache()
-    main = dict(results[(1024, 512)])  # the local layers, 5 of 6
+    main = dict(results[(1024, 512, 4)])  # gemma's local layers, 5 of 6
     del main["label"]
     main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
     main["cases"] = [{key: r[key] for key in (
@@ -514,7 +566,8 @@ def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
     """The card's path (kernels) against the CPU's (plain versions) on the
     same reduced weights: prefill 48 tokens, then 4 steps, f32."""
     cfg = get_config(arch)
-    rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32)
+    rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
+                   rwkv_chunk=16)
     cpu, dev = Model(cfg, rc, "cpu"), Model(cfg, rc, "cuda")
     params_cpu = cpu.init(0)
     params_dev = tree_to_torch(params_cpu, "cuda")
@@ -545,7 +598,7 @@ def phase_train_reference(torch, Model, RunConfig, get_config,
     loss chunks."""
     cfg = get_config(arch)
     rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
-                   loss_chunk=64)
+                   loss_chunk=64, rwkv_chunk=16)
     cpu, dev = Model(cfg, rc, "cpu"), Model(cfg, rc, "cuda")
     params = {"cpu": cpu.init(0)}
     params["cuda"] = tree_to_torch(params["cpu"], "cuda")
@@ -577,6 +630,7 @@ def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
     """Serve ``cfg`` with a node kill at 20, then uninterrupted, then
     without snapshots; the kernels in ``needs`` must launch on the first
     run."""
+    t0 = time.time()
     for k in launches:
         launches[k] = 0
     toks, stats = serve.main(args + ["--inject-failure", "20"], cfg=cfg)
@@ -612,7 +666,8 @@ def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
           f"{ref_stats['prefill_s']:.4f} s); without snapshots "
           f"{bare['decode_tok_s']:.2f} tok/s ({bare['decode_step_ms']:.2f} "
           f"ms a step); peak memory {peak} bytes ({peak / 1e9:.2f} GB); "
-          f"tokens and final logits equal; launches {counts}", flush=True)
+          f"tokens and final logits equal; launches {counts}; phase "
+          f"{time.time() - t0:.1f} s", flush=True)
     return counts
 
 
@@ -623,6 +678,7 @@ def train_kill_and_resume(torch, train, launches, label, args, cfg, needs):
     bit-equal, and the kernels in ``needs`` must launch on the kill run.
     Returns (losses, stats, uninterrupted stats, the kill run's
     launches)."""
+    t0 = time.time()
     for k in launches:
         launches[k] = 0
     losses, stats = train.main(args + KILL_ARGS, cfg=cfg)
@@ -656,7 +712,7 @@ def train_kill_and_resume(torch, train, launches, label, args, cfg, needs):
           f"{ref_stats['step_ms']:.1f} ms; peak memory "
           f"{stats['peak_bytes']} bytes ({stats['peak_bytes'] / 1e9:.2f} "
           f"GB); losses from step 6 and final params CRC equal; launches "
-          f"{counts}", flush=True)
+          f"{counts}; phase {time.time() - t0:.1f} s", flush=True)
     return counts
 
 
@@ -664,8 +720,9 @@ def phase_train(torch, train, launches, get_config, Stage) -> dict:
     """Train gemma3-1b's first superblock at full width with a node kill
     and a bit-exact resume, then 2 steps of the whole model; then
     jamba-1.5-large-398b-reduced with the same kill and resume, and 3 steps
-    of full-width Jamba-1.5-Large cut to its first layer. Returns the
-    kernel launches of the kill runs and the Jamba L0 run, summed."""
+    of full-width Jamba-1.5-Large cut to its first layer; then the same
+    for RWKV6 and MLA. Returns the kernel launches of the kill runs and the
+    full-width runs without checkpoints, summed."""
     gemma = get_config("gemma3-1b")
     cut = dataclasses.replace(gemma, stages=(
         Stage(block=gemma.stages[0].block, repeat=1),))
@@ -711,7 +768,44 @@ def phase_train(torch, train, launches, get_config, Stage) -> dict:
           f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses}); peak memory "
           f"{stats['peak_bytes']} bytes ({stats['peak_bytes'] / 1e9:.2f} GB)"
           f"; launches {lcounts}", flush=True)
-    return {k: counts[k] + jcounts[k] + lcounts[k] for k in counts}
+    total = [counts, jcounts, lcounts]
+    # RWKV6 and MLA: the reduced configs with a kill and a bit-exact resume
+    # (4096-byte delta blocks, so that their small leaves reach
+    # delta_mask), then 2 steps each at full width
+    total.append(train_kill_and_resume(
+        torch, train, launches, "train rwkv6-1.6b-reduced f32",
+        TRAIN_ARGS + ["--delta-block", "4096"],
+        get_config("rwkv6-1.6b-reduced"), ("delta_mask",)))
+    total.append(train_kill_and_resume(
+        torch, train, launches, "train minicpm3-4b-reduced f32",
+        TRAIN_ARGS + ["--delta-block", "4096"],
+        get_config("minicpm3-4b-reduced"),
+        ("delta_mask", "flash_attention", "flash_attention_bwd")))
+    minicpm = get_config("minicpm3-4b")
+    cut = dataclasses.replace(minicpm, stages=(
+        Stage(block=minicpm.stages[0].block, repeat=MINICPM_TRAIN_LAYERS),))
+    for label, cfg, needs in (
+            ("train rwkv6-1.6b 24 layers f32", get_config("rwkv6-1.6b"), ()),
+            (f"train minicpm3-4b {MINICPM_TRAIN_LAYERS} layers f32", cut,
+             ("flash_attention", "flash_attention_bwd"))):
+        t0 = time.time()
+        for k in launches:
+            launches[k] = 0
+        losses, stats = train.main(TRAIN_ARGS + [
+            "--steps", "2", "--ckpt-every", "0"], cfg=cfg)
+        total.append(dict(launches))
+        torch.cuda.empty_cache()
+        if not all(map(math.isfinite, losses)) or len(losses) != 2:
+            raise AssertionError(f"{label}: losses {losses}")
+        if any(total[-1][k] <= 0 for k in needs) \
+                or total[-1] != stats["launches"]:
+            raise AssertionError(f"{label}: kernel launches {total[-1]}")
+        print(f"{label}: batch 4, seq 1024, 2 steps, no checkpoints; step "
+              f"{stats['step_ms']:.1f} ms; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; peak memory {stats['peak_bytes']} bytes "
+              f"({stats['peak_bytes'] / 1e9:.2f} GB); launches {total[-1]}; "
+              f"phase {time.time() - t0:.1f} s", flush=True)
+    return {k: sum(c[k] for c in total) for k in counts}
 
 
 def run_train_phase(torch) -> dict:
@@ -770,7 +864,8 @@ def main(argv) -> int:
                "flash_attention_bwd": phase_flash_bwd(torch, ops, ref,
                                                       flash),
                "ssm_scan_bwd": phase_ssm_bwd(torch, ref, ssm)}
-    for arch in ("gemma3-1b-reduced", "jamba-1.5-large-398b-reduced"):
+    for arch in ("gemma3-1b-reduced", "jamba-1.5-large-398b-reduced",
+                 "rwkv6-1.6b-reduced", "minicpm3-4b-reduced"):
         phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
                         arch)
         phase_train_reference(torch, Model, RunConfig, get_config,
@@ -785,8 +880,16 @@ def main(argv) -> int:
                           f"serve jamba-1.5-large {JAMBA_LAYERS} layers bf16",
                           JAMBA_ARGS, ("delta_mask", "flash_attention",
                                        "ssm_scan"), cut)
+    rcounts = phase_serve(torch, serve, ops.LAUNCHES, "serve rwkv6-1.6b f32",
+                          RWKV_ARGS, ("delta_mask",),
+                          get_config("rwkv6-1.6b"))
+    mcounts = phase_serve(torch, serve, ops.LAUNCHES,
+                          "serve minicpm3-4b f32", MINICPM_ARGS,
+                          ("delta_mask", "flash_attention"),
+                          get_config("minicpm3-4b"))
     tcounts = run_train_phase(torch)
-    counts = {k: counts[k] + jcounts[k] + tcounts[k] for k in counts}
+    counts = {k: counts[k] + jcounts[k] + rcounts[k] + mcounts[k]
+              + tcounts[k] for k in counts}
     where = {"delta_mask": ("src/repro_torch/kernels/csrc/delta_mask.cu",
                             "src/repro/kernels/delta_encode.py:37"),
              "flash_attention": (

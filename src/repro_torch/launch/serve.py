@@ -2,8 +2,9 @@
 session state, on the card by default.
 
 Port of ``repro/launch/serve.py``. Every --snapshot-every tokens the
-decode state (KV caches, Mamba conv and SSM states, plus the sampler
-cursor) is checkpointed in delta mode through a 3-node Assise cluster: the
+decode state (KV caches, MLA's compressed latents, Mamba conv and SSM
+states, RWKV shifts and wkv states, plus the sampler cursor) is
+checkpointed in delta mode through a 3-node Assise cluster: the
 changed-block scan of each snapshot runs on the ``delta_mask`` kernel,
 prefill attention on the flash-attention kernel and the Mamba prefill
 recurrence on the ``ssm_scan`` kernel. --inject-failure kills the serving
@@ -14,9 +15,10 @@ Example (on a machine with an NVIDIA H100):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --batch 4 --prompt-len 1024 --gen 32 --snapshot-every 8 \\
       --inject-failure 20
-Add ``--device cpu`` to run on the CPU (use ``gemma3-1b-reduced`` or
-``jamba-1.5-large-398b-reduced`` there). ``--dtype bfloat16`` serves with
-bf16 weights and caches (the SSM states stay f32).
+Add ``--device cpu`` to run on the CPU (use a ``-reduced`` arch there,
+such as ``rwkv6-1.6b-reduced``, whose session state is O(1) a sequence).
+``--dtype bfloat16`` serves with bf16 weights and caches (the SSM and wkv
+states stay f32).
 """
 from __future__ import annotations
 
@@ -58,13 +60,14 @@ def main(argv=None, cfg=None):
                          "directory, removed at the end)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
-                    help="weights and caches (SSM states stay float32)")
+                    help="weights and caches (SSM and wkv states stay "
+                         "float32)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     cfg = cfg or get_config(args.arch)
     dtype = DTYPES[args.dtype]
-    rc = RunConfig(param_dtype=dtype, cache_dtype=dtype)
+    rc = RunConfig(param_dtype=dtype, cache_dtype=dtype, rwkv_chunk=16)
     model = Model(cfg, rc, device=args.device)
     dev = model.device
     if dev.type == "cuda":

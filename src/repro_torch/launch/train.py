@@ -113,7 +113,7 @@ def main(argv=None, cfg=None):
 
     cfg = cfg or get_config(args.arch)
     rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
-                   loss_chunk=64)
+                   loss_chunk=64, rwkv_chunk=16)
     dev = device_mod.resolve(args.device)
     model = Model(cfg, rc, device=dev)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=5)

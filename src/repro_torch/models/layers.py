@@ -48,6 +48,14 @@ def apply_norm(kind: str, params: dict, x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def rms_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS normalization without a weight (MLA's latents), in f32, cast
+    back to x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary embeddings
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""State-space mixers: Mamba (Jamba's).
+"""State-space mixers: Mamba (Jamba's) and RWKV6 (Finch).
 
-Port of the Mamba half of ``repro/models/ssm.py``. Train and prefill
+Port of ``repro/models/ssm.py``. Mamba's train and prefill
 compute the per-position decays and inputs in f32 and run the recurrence
 through ``kernels.ops.ssm_scan`` (the CUDA kernel on the card, its plain
 version on the CPU), where the JAX package runs a chunked associative scan
@@ -9,10 +9,16 @@ sequence from a zero state. In training its gradient is the ``ssm_scan``
 backward kernel (the plain reverse scan on the CPU), where the JAX package
 differentiates its scan; the rest of the layer's gradient is autograd's.
 Decode is a single-step state update in plain PyTorch, as in the JAX
-package. RWKV is not ported yet (ROADMAP, Queue 1).
+package.
+
+RWKV6's time mix runs its wkv recurrence chunk by chunk in plain PyTorch
+(``_rwkv_chunk``), as the JAX package does in jnp: within a chunk the
+pairwise decays, between chunks the carried (B, H, dk, dv) state, with the
+same chunk boundaries. Prefill always shifts in zeros at position 0; only
+decode reads the cached shifts, as in the reference.
 
 Numerics: decays and states are f32; every decay is exp(negative) <= 1.
-The conv and SSM caches are updated in place.
+The conv, SSM, shift and wkv caches are updated in place.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import MambaSpec
+from repro_torch.configs.base import MambaSpec, RWKVSpec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal_init
 
@@ -130,4 +136,182 @@ def mamba_decode(params: dict, x: torch.Tensor, spec: MambaSpec,
     out = _gate_out(params, y, xc, z, x.dtype)
     cache["conv"].copy_(window[:, 1:])
     cache["ssm"].copy_(state)
+    return out, cache
+
+
+# ===========================================================================
+# RWKV6 (Finch)
+# ===========================================================================
+
+
+def init_rwkv(gen: torch.Generator, d_model: int, spec: RWKVSpec, dtype,
+              device, lead=()) -> dict:
+    """``w0`` and ``bonus_u`` are f32 whatever ``dtype``, as in the JAX
+    package."""
+    h = d_model // spec.head_dim
+
+    def w(shape, std=0.02, dt=dtype):
+        return normal_init(gen, (*lead, *shape), dt, device, std=std)
+    return {
+        "mix_mu": w((5, d_model), 0.1),
+        "mix_x": w((d_model,), 0.1),
+        "mix_w1": w((d_model, 5 * spec.mix_lora)),
+        "mix_w2": w((5, spec.mix_lora, d_model)),
+        "wr": w((d_model, d_model)),
+        "wk": w((d_model, d_model)),
+        "wv": w((d_model, d_model)),
+        "wg": w((d_model, d_model)),
+        "wo": w((d_model, d_model)),
+        "w0": torch.full((*lead, d_model), -1.0, dtype=torch.float32,
+                         device=device),
+        "dw1": w((d_model, spec.decay_lora)),
+        "dw2": w((spec.decay_lora, d_model)),
+        "bonus_u": w((h, spec.head_dim), 0.5, torch.float32),
+        "ln_x_scale": torch.ones((*lead, d_model), dtype=dtype,
+                                 device=device),
+        "ln_x_bias": torch.zeros((*lead, d_model), dtype=dtype,
+                                 device=device),
+    }
+
+
+def init_rwkv_channel(gen: torch.Generator, d_model: int, spec: RWKVSpec,
+                      dtype, device, lead=()) -> dict:
+    def w(shape, std=0.02):
+        return normal_init(gen, (*lead, *shape), dtype, device, std=std)
+    return {"cmu_k": w((d_model,), 0.1), "cmu_r": w((d_model,), 0.1),
+            "ck": w((d_model, spec.d_ffn)), "cv": w((spec.d_ffn, d_model)),
+            "cr": w((d_model, d_model))}
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
+    """Shift right by one along S; position 0 sees ``prev`` (or zeros)."""
+    b, s, d = x.shape
+    first = x.new_zeros((b, 1, d)) if prev is None else \
+        prev[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1) if s > 1 else first
+
+
+def _ddlerp(params, x, xx):
+    """Data-dependent lerp producing the 5 mixed inputs (r, k, v, g, w)."""
+    dx = (xx - x).float()
+    xf = x.float()
+    base = xf + dx * params["mix_x"].float()
+    lora = torch.tanh(base.to(x.dtype) @ params["mix_w1"])  # (B,S,5*ml)
+    b, s, _ = x.shape
+    lora = lora.reshape(b, s, 5, -1)
+    dyn = torch.einsum("bsfm,fmd->bsfd", lora, params["mix_w2"])
+    mix = params["mix_mu"].float() + dyn.float()  # (B,S,5,d)
+    out = xf[:, :, None, :] + dx[:, :, None, :] * mix
+    return [out[:, :, i].to(x.dtype) for i in range(5)]
+
+
+def _rwkv_proj(params, xs, h, dh):
+    xr, xk, xv, xg, xw = xs
+    b, s, _ = xr.shape
+    r = (xr @ params["wr"]).reshape(b, s, h, dh)
+    k = (xk @ params["wk"]).reshape(b, s, h, dh)
+    v = (xv @ params["wv"]).reshape(b, s, h, dh)
+    g = F.silu((xg @ params["wg"]).float())
+    logw = -torch.exp(params["w0"].float()
+                      + (torch.tanh(xw @ params["dw1"])
+                         @ params["dw2"]).float())
+    logw = torch.clamp(logw, -20.0, -1e-5).reshape(b, s, h, dh)
+    return r, k, v, g, logw
+
+
+def _rwkv_chunk(r, k, v, logw, u, state0):
+    """One wkv chunk. r/k/v/logw: (B,L,H,dk|dv), state0: (B,H,dk,dv) f32.
+    Returns (y (B,L,H,dv) f32, the state after the chunk). The running sum
+    of the log decays is a product with a triangle of ones: ``cumsum`` on
+    the card has no deterministic kernel, which training needs."""
+    rf, kf, vf = r.float(), k.float(), v.float()
+    n = r.shape[1]
+    ones = torch.ones((n, n), dtype=torch.float32, device=r.device)
+    lwc = torch.einsum("ts,bshd->bthd", torch.tril(ones), logw)  # inclusive
+    ex = lwc - logw  # exclusive
+    # inter-chunk: r_t . (exp(ex_t) * S0)
+    y_inter = torch.einsum("blhd,bhdv->blhv", rf * torch.exp(ex), state0)
+    # intra-chunk pairwise decays (strictly s < t): exp(ex_t - lwc_s) <= 1
+    diff = ex[:, :, None] - lwc[:, None, :]  # (B,Lt,Ls,H,dk)
+    tri = torch.tril(ones, diagonal=-1)
+    pair = torch.exp(torch.clamp(diff, max=0.0)) * tri[None, :, :, None, None]
+    amat = (rf[:, :, None] * kf[:, None] * pair).sum(-1)  # (B,Lt,Ls,H)
+    diag = (rf * u * kf).sum(-1)  # (B,L,H): the bonus on s = t
+    y_intra = torch.einsum("btsh,bshv->bthv", amat, vf) + diag[..., None] * vf
+    # new state: exp(lwc_L)*S0 + sum_s exp(lwc_L - lwc_s) k_s (x) v_s
+    w_all = torch.exp(lwc[:, -1])  # (B,H,dk)
+    k_dec = kf * torch.exp(lwc[:, -1][:, None] - lwc)
+    s_new = w_all[..., None] * state0 + torch.einsum("bshd,bshv->bhdv",
+                                                      k_dec, vf)
+    return y_inter + y_intra, s_new
+
+
+def rwkv_time_mix(params: dict, x: torch.Tensor, spec: RWKVSpec, *,
+                  chunk: int = 64, cache: Optional[dict] = None,
+                  mode: str = "train"):
+    """Returns (out, cache|None). cache: shift_tm (B,d), wkv (B,H,dk,dv)
+    f32, updated in place. Prefill and train shift in zeros and start from
+    ``cache["wkv"]`` (zeros without a cache); decode reads both."""
+    b, s, d = x.shape
+    h, dh = d // spec.head_dim, spec.head_dim
+    if mode == "decode":
+        xx = cache["shift_tm"][:, None].to(x.dtype)
+    else:
+        xx = _token_shift(x, None)
+    r, k, v, g, logw = _rwkv_proj(params, _ddlerp(params, x, xx), h, dh)
+    u = params["bonus_u"]
+
+    if mode == "decode":
+        state0 = cache["wkv"]
+        kf, vf, rf = k.float()[:, 0], v.float()[:, 0], r.float()[:, 0]
+        kv = kf[..., None] * vf[..., None, :]  # (B,H,dk,dv)
+        # the output reads the state before this step's update
+        y = torch.einsum("bhd,bhdv->bhv", rf, state0 + u[..., None] * kv)
+        state = torch.exp(logw[:, 0])[..., None] * state0 + kv
+        y = y[:, None]  # (B,1,H,dv)
+    else:
+        n = min(chunk, s)
+        pad = (-s) % n
+        if pad:  # a padded step: k = 0 and logw = 0 keep the state as is
+            r, k, v, logw = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                             for t in (r, k, v, logw))
+        state = cache["wkv"] if cache is not None else torch.zeros(
+            (b, h, dh, dh), dtype=torch.float32, device=x.device)
+        ys = []
+        for c in range(0, s + pad, n):  # the JAX package's lax.scan
+            y_c, state = _rwkv_chunk(r[:, c:c + n], k[:, c:c + n],
+                                     v[:, c:c + n], logw[:, c:c + n], u,
+                                     state)
+            ys.append(y_c)
+        y = torch.cat(ys, dim=1)[:, :s]
+    if cache is not None:
+        cache["shift_tm"].copy_(x[:, -1])
+        cache["wkv"].copy_(state)
+
+    # per-head group norm (population variance), then gate and project
+    yf = y.reshape(b, -1, h, dh)
+    mu = yf.mean(-1, keepdim=True)
+    var = yf.var(-1, keepdim=True, correction=0)
+    yn = (yf - mu) * torch.rsqrt(var + 1e-5)
+    yn = yn.reshape(b, -1, d) * params["ln_x_scale"].float() \
+        + params["ln_x_bias"].float()
+    return (yn * g).to(x.dtype) @ params["wo"], cache
+
+
+def rwkv_channel_mix(params: dict, x: torch.Tensor, *,
+                     cache: Optional[dict] = None, mode: str = "train"):
+    """RWKV6 channel mix. cache: shift_cm (B,d), updated in place."""
+    if mode == "decode":
+        xx = cache["shift_cm"][:, None].to(x.dtype)
+    else:
+        xx = _token_shift(x, None)
+    dx = xx - x
+    xk = x + dx * params["cmu_k"]
+    xr = x + dx * params["cmu_r"]
+    kk = torch.square(F.relu((xk @ params["ck"]).float()))
+    vv = kk.to(x.dtype) @ params["cv"]
+    rr = torch.sigmoid((xr @ params["cr"]).float())
+    out = (rr * vv.float()).to(x.dtype)
+    if cache is not None:
+        cache["shift_cm"].copy_(x[:, -1])
     return out, cache

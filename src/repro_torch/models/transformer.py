@@ -9,8 +9,9 @@ over it in Python, and in training recomputes each repeat in the backward
 (``torch.utils.checkpoint``) where JAX wraps the scan body in
 ``jax.checkpoint``.
 
-Mixers are GQA attention and Mamba; MLPs are dense or MoE, so hybrid
-stacks such as Jamba's run as they are.
+Mixers are GQA attention, MLA (latent attention with a compressed
+cache), Mamba and RWKV6; MLPs are dense or MoE (RWKV's channel mix takes
+the MLP's place), so hybrid stacks such as Jamba's run as they are.
 
 Three modes share one code path:
   - train:   full sequence, no cache; ``loss_fn`` takes the seq-chunked
@@ -18,8 +19,8 @@ Three modes share one code path:
   - prefill: full sequence, writes the decode cache (in place)
   - decode:  single token at position ``pos`` against the cache (in place)
 
-RWKV, MLA, modality front ends and additive position embeddings are not
-ported yet: they raise ``NotImplementedError`` (ROADMAP, Queue 1).
+Modality front ends and additive position embeddings are not ported
+yet: they raise ``NotImplementedError`` (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -53,6 +54,8 @@ class RunConfig:
     param_dtype: Any = torch.bfloat16
     cache_dtype: Any = torch.bfloat16
     loss_chunk: int = 1024  # seq-chunked vocab xent (recomputed)
+    rwkv_chunk: int = 64  # wkv recurrence chunk (train and prefill)
+    mla_absorb: bool = True  # MLA decode in the latent space
 
 
 def check_supported(cfg: ArchConfig, mode: str = "prefill") -> None:
@@ -62,15 +65,6 @@ def check_supported(cfg: ArchConfig, mode: str = "prefill") -> None:
         raise NotImplementedError(
             f"{cfg.name}: modality front ends and sinusoidal position "
             "embeddings are not ported yet (ROADMAP: Queue 1)")
-    for spec in cfg.layer_specs():
-        if spec.kind not in ("attn", "mamba"):
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.kind} mixers are not ported yet "
-                "(ROADMAP: Queue 1, remaining mixers)")
-        if spec.kind == "attn" and spec.attn.mla is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA is not ported yet "
-                "(ROADMAP: Queue 1, remaining mixers)")
 
 
 # ===========================================================================
@@ -85,15 +79,21 @@ def _init_block(cfg: ArchConfig, spec: LayerSpec, gen, dtype, device,
     if spec.kind == "attn":
         p["mixer"] = attn_mod.init_attn(gen, cfg.d_model, spec.attn, dtype,
                                         device, lead)
-    else:
+    elif spec.kind == "mamba":
         p["mixer"] = ssm_mod.init_mamba_full(gen, cfg.d_model, spec.mamba,
                                              dtype, device, lead)
+    else:
+        p["mixer"] = ssm_mod.init_rwkv(gen, cfg.d_model, spec.rwkv, dtype,
+                                       device, lead)
     if spec.mlp.kind == "dense":
         p["mlp"] = init_mlp(gen, cfg.d_model, spec.mlp.d_ff, spec.mlp.act,
                             dtype, device, lead)
     elif spec.mlp.kind == "moe":
         p["mlp"] = moe_mod.init_moe(gen, cfg.d_model, spec.mlp.moe,
                                     spec.mlp.act, dtype, device, lead)
+    elif spec.kind == "rwkv":  # the channel mix, in the MLP's place
+        p["mlp"] = ssm_mod.init_rwkv_channel(gen, cfg.d_model, spec.rwkv,
+                                             dtype, device, lead)
     else:
         p["mlp"] = {}
     return p
@@ -132,11 +132,26 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 def _init_layer_cache(cfg, spec: LayerSpec, batch: int, max_len: int, rc,
                       device, lead):
     cd = rc.cache_dtype
+    if spec.kind == "attn" and spec.attn.mla is not None:
+        m = spec.attn.mla  # the compressed latent and the shared rope key
+        return {"c_kv": torch.zeros((*lead, batch, max_len, m.kv_lora_rank),
+                                    dtype=cd, device=device),
+                "k_rope": torch.zeros((*lead, batch, max_len,
+                                       m.qk_rope_dim), dtype=cd,
+                                      device=device)}
     if spec.kind == "attn":
         shape = (*lead, batch, max_len, spec.attn.n_kv_heads,
                  spec.attn.head_dim)
         return {name: torch.zeros(shape, dtype=cd, device=device)
                 for name in ("k", "v")}
+    if spec.kind == "rwkv":
+        h, dh = cfg.d_model // spec.rwkv.head_dim, spec.rwkv.head_dim
+        return {"shift_tm": torch.zeros((*lead, batch, cfg.d_model),
+                                        dtype=cd, device=device),
+                "shift_cm": torch.zeros((*lead, batch, cfg.d_model),
+                                        dtype=cd, device=device),
+                "wkv": torch.zeros((*lead, batch, h, dh, dh),
+                                   dtype=torch.float32, device=device)}
     di = spec.mamba.d_inner(cfg.d_model)
     return {"conv": torch.zeros((*lead, batch, spec.mamba.d_conv - 1, di),
                                 dtype=cd, device=device),
@@ -162,14 +177,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 # ===========================================================================
 
 
-def _apply_mixer(cfg, spec: LayerSpec, params, x, *, mode, positions, pos,
-                 cache):
+def _apply_mixer(cfg, spec: LayerSpec, rc: RunConfig, params, x, *, mode,
+                 positions, pos, cache):
+    if spec.kind == "attn" and spec.attn.mla is not None:
+        if mode == "decode":
+            return attn_mod.mla_decode(params, x, spec.attn, pos=pos,
+                                       cache=cache, absorb=rc.mla_absorb)
+        return attn_mod.mla_forward(params, x, spec.attn,
+                                    positions=positions, cache=cache)
     if spec.kind == "attn":
         if mode == "decode":
             return attn_mod.gqa_decode(params, x, spec.attn, pos=pos,
                                        cache=cache)
         return attn_mod.gqa_forward(params, x, spec.attn,
                                     positions=positions, cache=cache)
+    if spec.kind == "rwkv":
+        return ssm_mod.rwkv_time_mix(params, x, spec.rwkv,
+                                     chunk=rc.rwkv_chunk, cache=cache,
+                                     mode=mode)
     if mode == "decode":
         return ssm_mod.mamba_decode(params, x, spec.mamba, cfg.d_model,
                                     cache=cache)
@@ -177,12 +202,13 @@ def _apply_mixer(cfg, spec: LayerSpec, params, x, *, mode, positions, pos,
                                  cache=cache)
 
 
-def _apply_block(cfg, spec: LayerSpec, params, x, *, mode, positions, pos,
-                 cache, n_groups):
+def _apply_block(cfg, spec: LayerSpec, rc, params, x, *, mode, positions,
+                 pos, cache, n_groups):
     """Returns (x, the MoE aux loss: a plain 0.0 for a dense MLP, so that
-    a dense model's serving launches nothing for it)."""
+    a dense model's serving launches nothing for it). An RWKV layer's one
+    cache dict holds both its mixes' state."""
     h = apply_norm(cfg.norm, params["ln1"], x, cfg.norm_eps)
-    mix_out, _ = _apply_mixer(cfg, spec, params["mixer"], h, mode=mode,
+    mix_out, _ = _apply_mixer(cfg, spec, rc, params["mixer"], h, mode=mode,
                               positions=positions, pos=pos, cache=cache)
     x = x + mix_out
     aux = 0.0
@@ -193,15 +219,19 @@ def _apply_block(cfg, spec: LayerSpec, params, x, *, mode, positions, pos,
         y, aux = moe_mod.apply_moe(params["mlp"], h, spec.mlp.moe,
                                    spec.mlp.act, n_groups=n_groups)
         x = x + y
+    elif spec.kind == "rwkv":
+        y, _ = ssm_mod.rwkv_channel_mix(params["mlp"], h, cache=cache,
+                                        mode=mode)
+        x = x + y
     return x, aux
 
 
-def _apply_superblock(cfg, stage: Stage, params, x, *, mode, positions, pos,
-                      cache, n_groups):
+def _apply_superblock(cfg, stage: Stage, rc, params, x, *, mode, positions,
+                      pos, cache, n_groups):
     aux_total = 0.0
     for i, spec in enumerate(stage.block):
         li = f"L{i}"
-        x, aux = _apply_block(cfg, spec, params[li], x, mode=mode,
+        x, aux = _apply_block(cfg, spec, rc, params[li], x, mode=mode,
                               positions=positions, pos=pos,
                               cache=None if cache is None else cache[li],
                               n_groups=n_groups)
@@ -215,21 +245,21 @@ def _index(tree, r: int):
             for k, v in tree.items()}
 
 
-def _apply_stage(cfg, stage: Stage, params, x, *, mode, positions, pos,
+def _apply_stage(cfg, stage: Stage, rc, params, x, *, mode, positions, pos,
                  cache, n_groups):
     """Returns (x, the stage's summed MoE aux loss). In train mode each
     repeat of a stacked stage is recomputed in the backward, as the JAX
     package's ``jax.checkpoint`` of its scan body; a stage of one repeat is
     not recomputed, as there."""
     if stage.repeat == 1:
-        return _apply_superblock(cfg, stage, params, x, mode=mode,
+        return _apply_superblock(cfg, stage, rc, params, x, mode=mode,
                                  positions=positions, pos=pos, cache=cache,
                                  n_groups=n_groups)
     aux_total = 0.0
     for r in range(stage.repeat):  # the JAX package's lax.scan
         def body(x_, r=r):
             return _apply_superblock(
-                cfg, stage, _index(params, r), x_, mode=mode,
+                cfg, stage, rc, _index(params, r), x_, mode=mode,
                 positions=positions, pos=pos,
                 cache=None if cache is None else _index(cache, r),
                 n_groups=n_groups)
@@ -261,10 +291,12 @@ def _logits(cfg: ArchConfig, params, x):
 
 
 def forward(cfg: ArchConfig, params, tokens, *, mode: str = "prefill",
-            caches=None, pos: Optional[int] = None):
+            caches=None, pos: Optional[int] = None,
+            rc: RunConfig = RunConfig()):
     """tokens: (B,S) [decode: (B,1)]. Returns (hidden, caches, aux): hidden
     is the final-norm output; the caches, when given, are updated in place;
-    aux is the summed MoE aux loss (0.0 without MoE)."""
+    aux is the summed MoE aux loss (0.0 without MoE). ``rc`` gives the RWKV
+    chunk and the MLA decode path."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the port runs train, prefill and "
                          "decode")
@@ -276,7 +308,8 @@ def forward(cfg: ArchConfig, params, tokens, *, mode: str = "prefill",
     n_groups = moe_mod.default_groups(tokens.shape[0], tokens.shape[1], mode)
     aux_total = 0.0
     for i, stage in enumerate(cfg.stages):
-        x, aux = _apply_stage(cfg, stage, params["stages"][i], x, mode=mode,
+        x, aux = _apply_stage(cfg, stage, rc, params["stages"][i], x,
+                              mode=mode,
                               positions=positions, pos=pos,
                               cache=None if caches is None else caches[i],
                               n_groups=n_groups)
@@ -326,7 +359,8 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch,
             aux_coef: float = 0.01):
     """batch: tokens (B,S), labels (B,S) (-1 = masked), integer tensors.
     Returns (loss, {"xent", "aux"})."""
-    hidden, _, aux = forward(cfg, params, batch["tokens"], mode="train")
+    hidden, _, aux = forward(cfg, params, batch["tokens"], mode="train",
+                             rc=rc)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
     sum_e, sum_m = _chunked_xent(cfg, rc, params, hidden, batch["labels"])
     xent = sum_e / torch.clamp(sum_m, min=1.0)
@@ -335,18 +369,20 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch,
 
 
 @torch.no_grad()
-def prefill(cfg: ArchConfig, params, tokens, caches):
+def prefill(cfg: ArchConfig, params, tokens, caches,
+            rc: RunConfig = RunConfig()):
     """Returns (last-position logits (B,V), filled caches)."""
     hidden, caches, _ = forward(cfg, params, tokens, mode="prefill",
-                                caches=caches)
+                                caches=caches, rc=rc)
     return _logits(cfg, params, hidden[:, -1:])[:, -1], caches
 
 
 @torch.no_grad()
-def decode_step(cfg: ArchConfig, params, tokens, pos: int, caches):
+def decode_step(cfg: ArchConfig, params, tokens, pos: int, caches,
+                rc: RunConfig = RunConfig()):
     """tokens (B,1), pos: int. Returns (logits (B,V), caches)."""
     hidden, caches, _ = forward(cfg, params, tokens, mode="decode",
-                                caches=caches, pos=pos)
+                                caches=caches, pos=pos, rc=rc)
     return _logits(cfg, params, hidden)[:, -1], caches
 
 
@@ -374,7 +410,7 @@ class Model:
         return loss_fn(self.cfg, self.rc, params, batch)
 
     def prefill(self, params, tokens, caches):
-        return prefill(self.cfg, params, tokens, caches)
+        return prefill(self.cfg, params, tokens, caches, self.rc)
 
     def decode_step(self, params, tokens, pos: int, caches):
-        return decode_step(self.cfg, params, tokens, pos, caches)
+        return decode_step(self.cfg, params, tokens, pos, caches, self.rc)

@@ -900,3 +900,61 @@ def test_flash_attention_bwd_kernel_rejects(cuda, bad):
         flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=True,
                                        window=None, scale=None)
     assert ops.LAUNCHES["flash_attention_bwd"] == before
+
+
+# minicpm3-4b's MLA heads: D = 96 (64 nope + 32 rope), Dv = 64, H = Hk =
+# 40; the kernels pad both to their 128-wide head tile
+MLA_SHAPE = dict(b=4, s=1024, h=40)
+
+
+def _mla_views(b, s, h, dtype, device, seed):
+    """q, k, v as ``mla_forward`` hands them to the kernel: q and k
+    (B, S, H, 96) concatenations, v the second half of a (B, S, H, 128)
+    expansion, each viewed as (B, H, S, D)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    q, k, kvb = (torch.randn(b, s, h, d, generator=gen, device=device)
+                 .to(dtype) for d in (96, 96, 128))
+    return q.transpose(1, 2), k.transpose(1, 2), kvb[..., 64:].transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_attention_kernel_mla_shape(cuda, dtype, tol):
+    q, k, v = _mla_views(**MLA_SHAPE, dtype=dtype, device=cuda, seed=0)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, scale=96 ** -0.5)
+    exp = ref.flash_attention_ref(q, k, v, scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == (4, 40, 1024, 64)
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_mla_shape(cuda):
+    """The backward at the MLA shape from the forward kernel's output and
+    lse, twice bit-equal, then once more through autograd on the model's
+    views: dv comes back 64 wide, dq and dk 96."""
+    q, k, v = _mla_views(**MLA_SHAPE, dtype=torch.float32, device=cuda,
+                         seed=1)
+    dout = torch.randn(4, 40, 1024, 64, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(2))
+    kw = dict(causal=True, window=None, scale=96 ** -0.5)
+    out, lse = flash.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    got = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    again = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    exp = ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _assert_grads_close([g.cpu() for g in got], [e.cpu() for e in exp],
+                        rel=BWD_TOL)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    auto = torch.autograd.grad(ops.flash_attention(
+        *leaves, scale=96 ** -0.5), leaves, dout)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    assert [tuple(g.shape[-1:]) for g in auto] == [(96,), (96,), (64,)]
+    _assert_grads_close([g.cpu() for g in auto], [e.cpu() for e in exp],
+                        rel=BWD_TOL)

@@ -1,5 +1,5 @@
-"""The port's model (repro_torch.models: dense, hybrid Mamba/attention and
-MoE stacks) against the JAX package.
+"""The port's model (repro_torch.models: dense, hybrid Mamba/attention,
+MoE, RWKV6 and MLA stacks) against the JAX package.
 
 Inputs are made from a seed with numpy and handed to both packages; the
 JAX parameters and caches are carried into the port with
@@ -28,7 +28,8 @@ from repro_torch.weights import caches_from_jax, params_from_jax
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 CPU = torch.device("cpu")
-PORT_RC = ptf.RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32)
+PORT_RC = ptf.RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
+                        rwkv_chunk=16)  # the small_rc fixture's chunk
 
 
 def _rand(rng, shape, scale=1.0):
@@ -169,12 +170,17 @@ def test_prefill_and_decode_match_jax(repeat0, small_rc):
                                   "deepseek-moe-16b-reduced",
                                   "qwen1.5-32b-reduced",
                                   "stablelm-12b-reduced",
-                                  "phi3.5-moe-42b-a6.6b-reduced"])
+                                  "phi3.5-moe-42b-a6.6b-reduced",
+                                  "rwkv6-1.6b-reduced",
+                                  "minicpm3-4b-reduced"])
 def test_hybrid_and_moe_prefill_and_decode_match_jax(arch, small_rc):
     """Jamba's superblock (Mamba + attention, dense + MoE), a MoE stack
     with shared experts, qkv biases (qwen1.5), layernorm (stablelm) and
     layernorm with MoE in every layer (phi3.5-moe); decode runs 2-token
-    MoE groups, capacity 2."""
+    MoE groups, capacity 2. RWKV6 prefills in 16-token chunks (40 tokens:
+    the last chunk padded) and decodes from its shifts and wkv states;
+    minicpm3's MLA prefills with D = 16, Dv = 8 and decodes absorbed from
+    the compressed cache."""
     _check_prefill_and_decode(*_configs(1, arch), small_rc,
                               np.random.default_rng(7))
 
@@ -193,7 +199,7 @@ def _check_prefill_and_decode(jcfg, pcfg, small_rc, rng):
     jprefill, jdecode = jax.jit(model.prefill), jax.jit(model.decode_step)
     jl, jcaches = jprefill(jparams, jnp.asarray(toks[:, :s]), jcaches)
     pl, caches = ptf.prefill(pcfg, params, torch.from_numpy(toks[:, :s])
-                             .long(), caches)
+                             .long(), caches, PORT_RC)
     _close(pl, jl, **tol)
     for step in range(n_dec):  # teacher-forced
         t = toks[:, s + step:s + step + 1]
@@ -201,7 +207,7 @@ def _check_prefill_and_decode(jcfg, pcfg, small_rc, rng):
                               jnp.asarray(s + step, jnp.int32), jcaches)
         pl, caches = ptf.decode_step(pcfg, params,
                                      torch.from_numpy(t).long(), s + step,
-                                     caches)
+                                     caches, PORT_RC)
         _close(pl, jl, **tol)
     jflat, pflat = jax_flatten(jcaches), port_flatten(caches)
     assert sorted(jflat) == sorted(pflat)
@@ -279,9 +285,7 @@ def test_init_leaves_match_jax_full_jamba():
         assert str(pleaf.dtype) == f"torch.{jleaf.dtype}"
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b-reduced",
-                                  "musicgen-large-reduced",
-                                  "minicpm3-4b-reduced"])
+@pytest.mark.parametrize("arch", ["musicgen-large-reduced"])
 def test_unported_mixers_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ptf.Model(port_get_config(arch), PORT_RC, device=CPU)

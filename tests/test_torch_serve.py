@@ -86,6 +86,29 @@ def test_serve_jamba_bf16_failover_matches_uninterrupted_run(small_blocks,
     assert 0 < ref_stats["bytes_logged"] < ref_stats["bytes_full"]
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b-reduced",
+                                  "minicpm3-4b-reduced"])
+def test_serve_rwkv_and_mla_failover_matches_uninterrupted_run(
+        arch, small_blocks, tmp_path):
+    """RWKV6's session state (the shifts and the f32 wkv states, O(1) a
+    sequence) and MLA's compressed cache (latents and rope keys) go
+    through the delta snapshots, the kill and the failover: the resumed
+    tokens and final logits equal an uninterrupted run's."""
+    args = ["--device", "cpu", "--arch", arch, "--batch", "2",
+            "--prompt-len", "24", "--gen", "12", "--snapshot-every", "4"]
+    toks, stats = serve.main(args + ["--inject-failure", "6", "--workdir",
+                                     str(tmp_path / "a")])
+    assert small_blocks and set(small_blocks) == {256}
+    ref_toks, ref_stats = serve.main(args + ["--workdir",
+                                             str(tmp_path / "b")])
+    assert toks.shape == (2, 12)
+    np.testing.assert_array_equal(toks, ref_toks)
+    assert stats["logits_crc"] == ref_stats["logits_crc"]
+    assert stats["logits_finite"] and stats["failover_s"] > 0
+    assert stats["snapshots"] == ref_stats["snapshots"] == 3
+    assert 0 < ref_stats["bytes_logged"] <= ref_stats["bytes_full"]
+
+
 def test_serve_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -33,7 +33,8 @@ from repro_torch.weights import (params_from_jax, tree_leaves, tree_to_torch,
 
 CPU = torch.device("cpu")
 PORT_RC = ptf.RunConfig(param_dtype=torch.float32,
-                        cache_dtype=torch.float32, loss_chunk=64)
+                        cache_dtype=torch.float32, loss_chunk=64,
+                        rwkv_chunk=16)
 # f32 loss and gradients: the loss within 1e-5 relative, each gradient leaf
 # within 1e-5 of its largest element (the measured worst is ~1e-6)
 REL = 1e-5
@@ -72,14 +73,17 @@ def _grads_by_name(params, grads):
     ("gemma3-1b-reduced", 1), ("gemma3-1b-reduced", 2),
     ("deepseek-moe-16b-reduced", 1), ("qwen1.5-32b-reduced", 1),
     ("stablelm-12b-reduced", 1), ("phi3.5-moe-42b-a6.6b-reduced", 1),
-    ("jamba-1.5-large-398b-reduced", 1)])
+    ("jamba-1.5-large-398b-reduced", 1), ("rwkv6-1.6b-reduced", 1),
+    ("rwkv6-1.6b-reduced", 2), ("minicpm3-4b-reduced", 2)])
 def test_loss_and_grads_match_jax(arch, repeat0, small_rc):
     """The loss, its parts and every gradient leaf against
     ``jax.value_and_grad(loss_fn)``. gemma3-1b with a first stage of
     repeat 2 runs the recomputed (remat) stage, as JAX's checkpointed
     scan; the MoE archs carry the aux loss; Jamba's seven Mamba layers run
     the scan's backward (``ssm_scan_bwd_ref``), where JAX differentiates
-    its chunked associative scan."""
+    its chunked associative scan. RWKV6 differentiates its wkv chunks
+    (with repeat 2, under recompute); minicpm3's stacked MLA layers run
+    flash attention's backward with Dv != D under recompute."""
     jcfg, pcfg = _configs(arch, repeat0)
     jparams = jtf.init_params(jcfg, jax.random.key(0), small_rc)
     batch = _batch(jcfg.vocab_size)
@@ -229,14 +233,26 @@ def test_jamba_failover_resume_is_bit_exact(small_blocks, tmp_path):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
+def test_rwkv_failover_resume_is_bit_exact(small_blocks, tmp_path):
+    """The same kill and resume on RWKV6: the wkv chunks' gradients, and
+    the f32 ``w0`` and ``bonus_u`` with their AdamW moments through the
+    checkpoint."""
+    losses = _check_failover_resume("rwkv6-1.6b-reduced", small_blocks,
+                                    tmp_path)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
 def test_unported_mixers_raise_in_train_mode():
-    """Mamba trains (Jamba passes the train-mode check); RWKV is not ported
-    and still raises, in train mode as in serving."""
-    ptf.check_supported(port_get_config("jamba-1.5-large-398b-reduced"),
-                        "train")
-    cfg = port_get_config("rwkv6-1.6b-reduced")
-    with pytest.raises(NotImplementedError, match="rwkv"):
-        ptf.check_supported(cfg, "train")
+    """Mamba, RWKV6 and MLA train (Jamba, rwkv6 and minicpm3 pass the
+    train-mode check); modality front ends and sinusoidal position
+    embeddings are not ported and still raise, in train mode as in
+    serving."""
+    for arch in ("jamba-1.5-large-398b-reduced", "rwkv6-1.6b-reduced",
+                 "rwkv6-1.6b", "minicpm3-4b-reduced", "minicpm3-4b"):
+        ptf.check_supported(port_get_config(arch), "train")
+    for arch in ("qwen2-vl-2b-reduced", "musicgen-large-reduced"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ptf.check_supported(port_get_config(arch), "train")
 
 
 def test_train_defaults_to_the_card():
