@@ -12,9 +12,11 @@ Phases, one printed line each; any failure raises and exits non-zero:
   flash      the flash-attention kernel at the gemma3-1b prefill shapes
              (B=4, H=4, Hk=1, S=1024, D=256; window 512 and none; f32 and
              bf16; ragged S=1000), at Jamba's (bf16, B=4, H=64, Hk=8,
-             S=1024, D=128, global) and at minicpm3-4b's MLA heads (f32
-             and bf16, B=4, H=Hk=40, S=1024, D=96, Dv=64) against its plain
-             version; kernel, plain, bound and library
+             S=1024, D=128, global), at minicpm3-4b's MLA heads (f32
+             and bf16, B=4, H=Hk=40, S=1024, D=96, Dv=64), at
+             musicgen-large's (f32, B=4, H=Hk=32, S=64+1024, D=64) and at
+             qwen2-vl-2b's (f32, B=4, H=12, Hk=2, S=256+1024, D=128)
+             against its plain version; kernel, plain, bound and library
              (scaled_dot_product_attention) ms; each line names the
              kernel's path, mma (bf16) or tf32 (f32 as 3xTF32), both on
              tensor cores, the rate its bound assumes, and where the head
@@ -31,16 +33,20 @@ Phases, one printed line each; any failure raises and exits non-zero:
              computes it)
   flash_bwd  the flash-attention backward kernel at gemma3-1b's train
              shapes (f32, B=4, H=4, Hk=1, S=1024, D=256; window 512 and
-             none; ragged S=1000) and minicpm3-4b's (f32, B=4, H=Hk=40,
-             S=1024, D=96, Dv=64), fed the forward kernel's output and
+             none; ragged S=1000), minicpm3-4b's (f32, B=4, H=Hk=40,
+             S=1024, D=96, Dv=64), musicgen-large's (H=Hk=32, S=1088, D=64)
+             and qwen2-vl-2b's (H=12, Hk=2, S=1280, D=128; a GQA group of
+             6 in its group sum), fed the forward kernel's output and
              log-sum-exp, against its plain version; two launches
              bit-equal; kernel, plain, bound and library (the backward of
              scaled_dot_product_attention) ms; each line names the path,
              tf32 (3xTF32 mma.sync)
   reference  gemma3-1b-reduced, jamba-1.5-large-398b-reduced,
-             rwkv6-1.6b-reduced and minicpm3-4b-reduced prefill + decode on
-             the card against the same weights on the CPU, f32; each
-             arch's train loss and gradients likewise
+             rwkv6-1.6b-reduced, minicpm3-4b-reduced, qwen2-vl-2b-reduced
+             and musicgen-large-reduced prefill + decode on the card
+             against the same weights on the CPU, f32 (the last two with 4
+             random front-end embeddings before the prompt, decoding after
+             them); each arch's train loss and gradients likewise
   serve      full-width gemma3-1b (f32) through repro_torch.launch.serve:
              batch 4, prompt 1024, 32 tokens, a delta snapshot every 8, a
              node kill and failover at 20; tokens and final logits equal to
@@ -55,6 +61,16 @@ Phases, one printed line each; any failure raises and exits non-zero:
   minicpm3   the same serve of full-width minicpm3-4b (f32, 62 MLA
              layers, a compressed 302 MB cache): delta_mask and
              flash_attention (D=96, Dv=64) launched on that path
+  qwen2-vl   the same serve of the whole qwen2-vl-2b (f32, 28 layers, GQA
+             12 on 2 heads): 256 stub patch embeddings prefilled before
+             each 1024-token prompt, decode from position 1280, a 301 MB
+             KV cache; delta_mask and flash_attention launched
+  musicgen   the same serve of full-width musicgen-large cut to its first
+             12 of 48 layers (f32, MHA 32 heads of 64, sinusoidal
+             positions, 64 conditioning embeddings before each prompt, a
+             0.88 GB KV cache); then the whole 48 layers once without
+             snapshots (a 3.52 GB cache): prefill and 32 decode steps,
+             tokens in range and logits finite
   train      full-width gemma3-1b (f32, the 262,144 vocabulary) cut to its
              first superblock (6 layers, 5 local + 1 global) through
              repro_torch.launch.train: batch 4, seq 1024, 8 steps, a delta
@@ -73,13 +89,19 @@ Phases, one printed line each; any failure raises and exits non-zero:
              (4096-byte delta blocks; MLA launches flash_attention and
              its backward), and 2 steps each of the whole rwkv6-1.6b and
              of full-width minicpm3-4b cut to its first 8 layers (one
-             stacked stage, recomputed). It runs in a child process with
+             stacked stage, recomputed); then qwen2-vl-2b-reduced and
+             musicgen-large-reduced with the same kill and bit-exact resume
+             (the pipeline's front-end embeddings for each step), and 2
+             steps each of the whole qwen2-vl-2b and the whole
+             musicgen-large, flash_attention and its backward launched at
+             S = 1024 + 256 and 1024 + 64. It runs in a child process with
              CUBLAS_WORKSPACE_CONFIG set, which the deterministic train
              step needs and which would slow the serve phases' decode
 Each serve and train line ends with its phase's seconds. Then one JSON
 line with every kernel's numbers (launches summed over the main-path
-runs: the four serve runs with a node kill, the four train runs with a
-node kill, and the Jamba L0, rwkv6-1.6b and minicpm3 8-layer train runs;
+runs: the six serve runs with a node kill and the whole musicgen-large
+serve, the six train runs with a node kill, and the Jamba L0,
+rwkv6-1.6b, minicpm3 8-layer, qwen2-vl-2b and musicgen-large train runs;
 flash_attention's entry is gemma3-1b's f32 case,
 flash_attention_bwd's its window-512 train case, each with every case
 under "cases"), and the last line {"ok": true, "device": {...}}. Times are
@@ -120,6 +142,12 @@ RWKV_ARGS = ["--arch", "rwkv6-1.6b"] + SERVE_ARGS[2:]
 MINICPM_ARGS = ["--arch", "minicpm3-4b"] + SERVE_ARGS[2:]
 # of 62: the whole model's 66 GB train state leaves no room for activations
 MINICPM_TRAIN_LAYERS = 8
+QWEN_VL_ARGS = ["--arch", "qwen2-vl-2b"] + SERVE_ARGS[2:]
+MUSICGEN_ARGS = ["--arch", "musicgen-large"] + SERVE_ARGS[2:]
+# of 48 for the runs with snapshots: the whole model's 3.52 GB cache takes
+# minutes to snapshot four times through the cluster; the whole model
+# serves once without snapshots
+MUSICGEN_SERVE_LAYERS = 12
 
 
 def time_ms(torch, fn) -> float:
@@ -240,6 +268,8 @@ def phase_flash(torch, ops, ref) -> dict:
     dev = torch.device("cuda")
     gemma = (4, 4, 1, 256, 256)  # B, H, Hk, D, Dv of gemma3-1b's prefill
     mla = (4, 40, 40, 96, 64)  # minicpm3-4b's MLA: 64 nope + 32 rope; v 64
+    musicgen = (4, 32, 32, 64, 64)  # MHA, prefill of 64 + 1024 rows
+    qwen_vl = (4, 12, 2, 128, 128)  # GQA group 6, prefill of 256 + 1024
     cases = [(gemma, torch.float32, 1024, 512),
              (gemma, torch.float32, 1024, None),
              (gemma, torch.bfloat16, 1024, 512),
@@ -248,7 +278,9 @@ def phase_flash(torch, ops, ref) -> dict:
              (gemma, torch.bfloat16, 1000, None),
              ((4, 64, 8, 128, 128), torch.bfloat16, 1024, None),  # Jamba's
              (mla, torch.float32, 1024, None),
-             (mla, torch.bfloat16, 1024, None)]
+             (mla, torch.bfloat16, 1024, None),
+             (musicgen, torch.float32, 1088, None),
+             (qwen_vl, torch.float32, 1280, None)]
     results = {}
     for (b, h, hk, d, dv), dtype, s, window in cases:
         gen = torch.Generator(device=dev).manual_seed(s + (window or 0) + h)
@@ -332,17 +364,22 @@ def phase_flash(torch, ops, ref) -> dict:
 def phase_flash_bwd(torch, ops, ref, flash) -> dict:
     """The backward kernel at gemma3-1b's train shapes (f32): local layers
     (window 512), the global layer, and a ragged S; then at minicpm3-4b's
-    MLA heads (D = 96, Dv = 64, H = Hk = 40). Its bound counts the five
+    MLA heads (D = 96, Dv = 64, H = Hk = 40), musicgen-large's (MHA, D = 64,
+    S = 64 + 1024) and qwen2-vl-2b's (a GQA group of 6, D = 128, S = 256 +
+    1024). Its bound counts the five
     products (Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over the pairs the band
     holds."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gemma, mla = (4, 4, 1, 256, 256), (4, 40, 40, 96, 64)
+    musicgen, qwen_vl = (4, 32, 32, 64, 64), (4, 12, 2, 128, 128)
     results = {}
     for (b, h, hk, d, dv), s, window in ((gemma, 1024, 512),
                                          (gemma, 1024, None),
                                          (gemma, 1000, 512),
-                                         (mla, 1024, None)):
+                                         (mla, 1024, None),
+                                         (musicgen, 1088, None),
+                                         (qwen_vl, 1280, None)):
         gen = torch.Generator(device=dev).manual_seed(7 * s + (window or 0)
                                                       + h)
         q, k, v = (torch.randn(shape, generator=gen, device=dev)
@@ -564,7 +601,9 @@ def phase_ssm_bwd(torch, ref, ssm) -> dict:
 def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
                     arch) -> None:
     """The card's path (kernels) against the CPU's (plain versions) on the
-    same reduced weights: prefill 48 tokens, then 4 steps, f32."""
+    same reduced weights: prefill 48 tokens, then 4 steps, f32. An arch
+    with a front end prefills its ``n_frontend`` random embeddings first
+    and decodes after them."""
     cfg = get_config(arch)
     rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
                    rwkv_chunk=16)
@@ -573,21 +612,25 @@ def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
     params_dev = tree_to_torch(params_cpu, "cuda")
     gen = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (2, 52), generator=gen)
-    c_cpu, c_dev = cpu.init_cache(2, 52), dev.init_cache(2, 52)
-    l_cpu, c_cpu = cpu.prefill(params_cpu, toks[:, :48], c_cpu)
-    l_dev, c_dev = dev.prefill(params_dev, toks[:, :48].cuda(), c_dev)
+    nf = cfg.n_frontend
+    front = torch.randn((2, nf, cfg.d_model), generator=gen) if nf else None
+    c_cpu, c_dev = cpu.init_cache(2, nf + 52), dev.init_cache(2, nf + 52)
+    l_cpu, c_cpu = cpu.prefill(params_cpu, toks[:, :48], c_cpu, front)
+    l_dev, c_dev = dev.prefill(params_dev, toks[:, :48].cuda(), c_dev,
+                               None if front is None else front.cuda())
     worst = (l_dev.cpu() - l_cpu).abs().max().item()
     for step in range(4):
         t = toks[:, 48 + step:49 + step]
-        l_cpu, c_cpu = cpu.decode_step(params_cpu, t, 48 + step, c_cpu)
-        l_dev, c_dev = dev.decode_step(params_dev, t.cuda(), 48 + step,
+        l_cpu, c_cpu = cpu.decode_step(params_cpu, t, nf + 48 + step, c_cpu)
+        l_dev, c_dev = dev.decode_step(params_dev, t.cuda(), nf + 48 + step,
                                        c_dev)
         worst = max(worst, (l_dev.cpu() - l_cpu).abs().max().item())
         if not torch.allclose(l_dev.cpu(), l_cpu, atol=1e-4, rtol=1e-4):
             raise AssertionError(f"reference {arch}: step {step} logits "
                                  f"differ by {worst}")
-    print(f"reference: {arch} prefill 2x48 + 4 decode steps, card vs CPU "
-          f"max abs logit diff {worst:.3e} (tol 1e-4)", flush=True)
+    rows = f"({nf} front-end + 48)" if nf else "48"
+    print(f"reference: {arch} prefill 2x{rows} + 4 decode steps, card vs "
+          f"CPU max abs logit diff {worst:.3e} (tol 1e-4)", flush=True)
 
 
 def phase_train_reference(torch, Model, RunConfig, get_config,
@@ -595,7 +638,8 @@ def phase_train_reference(torch, Model, RunConfig, get_config,
     """``arch``'s train loss and every gradient on the card (flash forward
     and backward kernels; for Jamba also the scan's) against the same
     weights and batch on the CPU (plain versions), f32: S = 100 in 64-token
-    loss chunks."""
+    loss chunks; with random front-end embeddings where the arch has
+    them."""
     cfg = get_config(arch)
     rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
                    loss_chunk=64, rwkv_chunk=16)
@@ -604,14 +648,17 @@ def phase_train_reference(torch, Model, RunConfig, get_config,
     params["cuda"] = tree_to_torch(params["cpu"], "cuda")
     gen = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (2, 101), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.n_frontend:
+        batch["frontend_embeds"] = torch.randn(
+            (2, cfg.n_frontend, cfg.d_model), generator=gen)
     out = {}
     for where, model in (("cpu", cpu), ("cuda", dev)):
         leaves = tree_leaves(params[where])
         for p in leaves:
             p.requires_grad_(True)
         loss, _ = model.loss(params[where], {
-            "tokens": toks[:, :-1].to(model.device),
-            "labels": toks[:, 1:].to(model.device)})
+            k: v.to(model.device) for k, v in batch.items()})
         out[where] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
             loss, leaves)])
     worst = 0.0
@@ -629,7 +676,8 @@ def phase_train_reference(torch, Model, RunConfig, get_config,
 def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
     """Serve ``cfg`` with a node kill at 20, then uninterrupted, then
     without snapshots; the kernels in ``needs`` must launch on the first
-    run."""
+    run. An arch with a front end prefills its ``n_frontend`` stub
+    embeddings before each prompt."""
     t0 = time.time()
     for k in launches:
         launches[k] = 0
@@ -653,7 +701,7 @@ def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
     if min(counts[k] for k in needs) <= 0 or counts != stats["launches"]:
         raise AssertionError(f"{label}: kernel launches {counts}")
     peak = max(s["peak_bytes"] for s in (stats, ref_stats, bare))
-    print(f"{label}: batch 4, prompt 1024, 32 tokens; prefill "
+    print(f"{label}: batch 4, {_rows(cfg)}, 32 tokens; prefill "
           f"{stats['prefill_s']:.4f} s; decode {stats['decode_tok_s']:.2f} "
           f"tok/s ({stats['decode_s']:.3f} s: {stats['decode_steps']} steps "
           f"of {stats['decode_step_ms']:.2f} ms, {stats['snapshots']} "
@@ -668,6 +716,37 @@ def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
           f"ms a step); peak memory {peak} bytes ({peak / 1e9:.2f} GB); "
           f"tokens and final logits equal; launches {counts}; phase "
           f"{time.time() - t0:.1f} s", flush=True)
+    return counts
+
+
+def _rows(cfg) -> str:
+    """What a serve run prefills: the prompt, after the front end's rows."""
+    nf = cfg.n_frontend
+    return f"{nf} front-end rows + prompt 1024" if nf else "prompt 1024"
+
+
+def serve_once(torch, serve, launches, label, args, needs, cfg) -> dict:
+    """Serve ``cfg`` once without snapshots (no kill): tokens in range,
+    logits finite, the kernels in ``needs`` launched."""
+    t0 = time.time()
+    for k in launches:
+        launches[k] = 0
+    toks, stats = serve.main(args + ["--snapshot-every", "0"], cfg=cfg)
+    counts = dict(launches)
+    torch.cuda.empty_cache()
+    if not stats["logits_finite"] or toks.shape != (4, 32) \
+            or not (toks >= 0).all() or not (toks < cfg.vocab_size).all():
+        raise AssertionError(f"{label}: tokens {toks.shape}, logits finite "
+                             f"{stats['logits_finite']}")
+    if min(counts[k] for k in needs) <= 0 or counts != stats["launches"]:
+        raise AssertionError(f"{label}: kernel launches {counts}")
+    print(f"{label}: batch 4, {_rows(cfg)}, 32 tokens, no snapshots; "
+          f"prefill {stats['prefill_s']:.4f} s; decode "
+          f"{stats['decode_tok_s']:.2f} tok/s ({stats['decode_step_ms']:.2f} "
+          f"ms a step); peak memory {stats['peak_bytes']} bytes "
+          f"({stats['peak_bytes'] / 1e9:.2f} GB); tokens in range, logits "
+          f"finite; launches {counts}; phase {time.time() - t0:.1f} s",
+          flush=True)
     return counts
 
 
@@ -805,7 +884,43 @@ def phase_train(torch, train, launches, get_config, Stage) -> dict:
               f"{losses[-1]:.4f}; peak memory {stats['peak_bytes']} bytes "
               f"({stats['peak_bytes'] / 1e9:.2f} GB); launches {total[-1]}; "
               f"phase {time.time() - t0:.1f} s", flush=True)
+    # the front ends: reduced qwen2-vl and musicgen with a kill and a
+    # bit-exact resume (each step's front-end embeddings from the
+    # pipeline), then 2 steps of each whole model, whose attention sees
+    # 256 + 1024 and 64 + 1024 rows
+    for arch in ("qwen2-vl-2b", "musicgen-large"):
+        total.append(train_kill_and_resume(
+            torch, train, launches, f"train {arch}-reduced f32",
+            TRAIN_ARGS + ["--delta-block", "4096"],
+            get_config(f"{arch}-reduced"),
+            ("delta_mask", "flash_attention", "flash_attention_bwd")))
+    for arch in ("qwen2-vl-2b", "musicgen-large"):
+        total.append(train_steps(torch, train, launches, get_config(arch),
+                                 f"train {arch} whole f32"))
     return {k: sum(c[k] for c in total) for k in counts}
+
+
+def train_steps(torch, train, launches, cfg, label) -> dict:
+    """2 steps of ``cfg`` without checkpoints; flash_attention and its
+    backward must launch. Returns the launches."""
+    t0 = time.time()
+    for k in launches:
+        launches[k] = 0
+    losses, stats = train.main(TRAIN_ARGS + ["--steps", "2", "--ckpt-every",
+                                             "0"], cfg=cfg)
+    counts = dict(launches)
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, losses)) or len(losses) != 2:
+        raise AssertionError(f"{label}: losses {losses}")
+    if min(counts[k] for k in ("flash_attention", "flash_attention_bwd")) \
+            <= 0 or counts != stats["launches"]:
+        raise AssertionError(f"{label}: kernel launches {counts}")
+    print(f"{label}: batch 4, {cfg.n_frontend} front-end rows + seq 1024, 2 "
+          f"steps, no checkpoints; step {stats['step_ms']:.1f} ms; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak memory "
+          f"{stats['peak_bytes']} bytes ({stats['peak_bytes'] / 1e9:.2f} GB)"
+          f"; launches {counts}; phase {time.time() - t0:.1f} s", flush=True)
+    return counts
 
 
 def run_train_phase(torch) -> dict:
@@ -865,7 +980,8 @@ def main(argv) -> int:
                                                       flash),
                "ssm_scan_bwd": phase_ssm_bwd(torch, ref, ssm)}
     for arch in ("gemma3-1b-reduced", "jamba-1.5-large-398b-reduced",
-                 "rwkv6-1.6b-reduced", "minicpm3-4b-reduced"):
+                 "rwkv6-1.6b-reduced", "minicpm3-4b-reduced",
+                 "qwen2-vl-2b-reduced", "musicgen-large-reduced"):
         phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
                         arch)
         phase_train_reference(torch, Model, RunConfig, get_config,
@@ -887,9 +1003,24 @@ def main(argv) -> int:
                           "serve minicpm3-4b f32", MINICPM_ARGS,
                           ("delta_mask", "flash_attention"),
                           get_config("minicpm3-4b"))
+    qcounts = phase_serve(torch, serve, ops.LAUNCHES, "serve qwen2-vl-2b f32",
+                          QWEN_VL_ARGS, ("delta_mask", "flash_attention"),
+                          get_config("qwen2-vl-2b"))
+    musicgen = get_config("musicgen-large")
+    cut = dataclasses.replace(musicgen, stages=(
+        Stage(block=musicgen.stages[0].block,
+              repeat=MUSICGEN_SERVE_LAYERS),))
+    gcounts = phase_serve(torch, serve, ops.LAUNCHES,
+                          f"serve musicgen-large {MUSICGEN_SERVE_LAYERS} "
+                          "layers f32", MUSICGEN_ARGS,
+                          ("delta_mask", "flash_attention"), cut)
+    wcounts = serve_once(torch, serve, ops.LAUNCHES,
+                         "serve musicgen-large 48 layers f32", MUSICGEN_ARGS,
+                         ("flash_attention",), musicgen)
     tcounts = run_train_phase(torch)
-    counts = {k: counts[k] + jcounts[k] + rcounts[k] + mcounts[k]
-              + tcounts[k] for k in counts}
+    runs = (counts, jcounts, rcounts, mcounts, qcounts, gcounts, wcounts,
+            tcounts)
+    counts = {k: sum(c[k] for c in runs) for k in counts}
     where = {"delta_mask": ("src/repro_torch/kernels/csrc/delta_mask.cu",
                             "src/repro/kernels/delta_encode.py:37"),
              "flash_attention": (

@@ -9,7 +9,11 @@ changed-block scan of each snapshot runs on the ``delta_mask`` kernel,
 prefill attention on the flash-attention kernel and the Mamba prefill
 recurrence on the ``ssm_scan`` kernel. --inject-failure kills the serving
 node mid-generation and resumes decode on the cache replica from the last
-snapshot, the paper's failover applied to inference sessions.
+snapshot, the paper's failover applied to inference sessions. An
+architecture with a modality front end (qwen2-vl-2b's patches,
+musicgen-large's conditioning) prefills a stub of its ``n_frontend``
+embeddings before each prompt, drawn from the seed after the prompts, and
+decodes from position ``n_frontend + prompt_len``, as the JAX driver.
 
 Example (on a machine with an NVIDIA H100):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
@@ -73,7 +77,7 @@ def main(argv=None, cfg=None):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     params = model.init(args.seed)
-    max_len = args.prompt_len + args.gen
+    max_len = cfg.n_frontend + args.prompt_len + args.gen
     launches0 = dict(LAUNCHES)
 
     workdir = args.workdir or tempfile.mkdtemp(prefix="repro_torch_serve_")
@@ -89,15 +93,18 @@ def main(argv=None, cfg=None):
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (args.batch, args.prompt_len),
             dtype=np.int32)).long().to(dev)
+        frontend = (torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.n_frontend, cfg.d_model), dtype=np.float32)
+            * 0.02).to(dev, dtype) if cfg.n_frontend else None)
 
         caches = model.init_cache(args.batch, max_len)
         device_mod.sync(dev)
         t0 = time.time()
-        logits, caches = model.prefill(params, prompts, caches)
+        logits, caches = model.prefill(params, prompts, caches, frontend)
         device_mod.sync(dev)
         t_prefill = time.time() - t0
         generated = []
-        pos = args.prompt_len
+        pos = cfg.n_frontend + args.prompt_len
         tok = logits.argmax(-1)[:, None]
         t_snap = t_failover = 0.0
         steps = 0
@@ -142,7 +149,9 @@ def main(argv=None, cfg=None):
         device_mod.sync(dev)
         dt = time.time() - t0
         toks = np.stack(generated, axis=1)
-        print(f"prefill {args.batch}x{args.prompt_len} in {t_prefill:.2f}s; "
+        rows = (f"({cfg.n_frontend}+{args.prompt_len})" if cfg.n_frontend
+                else args.prompt_len)
+        print(f"prefill {args.batch}x{rows} in {t_prefill:.2f}s; "
               f"decoded {args.gen} tokens/seq in {dt:.2f}s "
               f"({args.batch*args.gen/dt:.1f} tok/s)")
         print("sample:", toks[0][:16].tolist())
@@ -152,6 +161,7 @@ def main(argv=None, cfg=None):
             shutil.rmtree(workdir, ignore_errors=True)
     stats = {
         "device": str(dev),
+        "frontend_rows": cfg.n_frontend,
         "prefill_s": t_prefill,
         "decode_s": dt,
         "decode_tok_s": args.batch * args.gen / dt,

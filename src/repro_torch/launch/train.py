@@ -45,7 +45,8 @@ from repro_torch.weights import tree_leaves, tree_unflatten
 def make_train_step(cfg, rc, opt_cfg):
     """Returns step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics): the loss and every parameter's gradient by autograd, then
-    AdamW. The new parameters are fresh leaves, ready for the next step."""
+    AdamW, which updates the parameters and moments in place (the JAX
+    step donates them)."""
     def step_fn(params, opt_state, batch):
         leaves = tree_leaves(params)
         for p in leaves:
@@ -74,6 +75,15 @@ def deterministic():
         yield
     finally:
         torch.use_deterministic_algorithms(prev)
+
+
+def to_device(batch, device, param_dtype):
+    """A pipeline batch on ``device``: tokens and labels as int64 indices,
+    a front end's embeddings (``frontend_embeds``) in the parameters'
+    dtype."""
+    return {k: torch.from_numpy(v).to(
+        device, param_dtype if k == "frontend_embeds" else torch.int64)
+        for k, v in batch.items()}
 
 
 def params_crc(params) -> int:
@@ -144,8 +154,7 @@ def main(argv=None, cfg=None):
         with deterministic():
             step = 0
             while step < args.steps:
-                batch = {k: torch.from_numpy(v).long().to(dev)
-                         for k, v in pipe.next().items()}
+                batch = to_device(pipe.next(), dev, rc.param_dtype)
                 device_mod.sync(dev)
                 t0 = time.time()
                 params, opt_state, metrics = step_fn(params, opt_state,

@@ -1,9 +1,11 @@
-"""Shared layer primitives: norms, activations, rotary embeddings, init.
+"""Shared layer primitives: norms, activations, positional encodings, init.
 
 Port of ``repro/models/layers.py``. Weights keep the JAX layout ``x @ W``
 with ``W`` of shape ``(d_in, d_out)``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +59,24 @@ def rms_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": _gelu,
+        "relu2": lambda x: torch.square(F.relu(x)),
+    }[name]
+
+
+# ---------------------------------------------------------------------------
 # Rotary embeddings
 # ---------------------------------------------------------------------------
 
@@ -80,14 +100,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_pos_emb(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """positions: (..., S) -> (..., S, dim) f32, [sin | cos]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Dense / gated MLP
 # ---------------------------------------------------------------------------
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x, approximate="tanh")
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str, dtype,

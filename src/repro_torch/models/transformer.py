@@ -12,15 +12,16 @@ over it in Python, and in training recomputes each repeat in the backward
 Mixers are GQA attention, MLA (latent attention with a compressed
 cache), Mamba and RWKV6; MLPs are dense or MoE (RWKV's channel mix takes
 the MLP's place), so hybrid stacks such as Jamba's run as they are.
+A modality front end hands in precomputed embeddings (``frontend``,
+(B, Nf, d_model)), which are prepended to the token embeddings, so the
+tokens sit at positions Nf.. in the sequence and in the cache; an
+architecture with sinusoidal positions adds them to both.
 
 Three modes share one code path:
   - train:   full sequence, no cache; ``loss_fn`` takes the seq-chunked
              vocab cross-entropy plus the MoE aux loss
   - prefill: full sequence, writes the decode cache (in place)
   - decode:  single token at position ``pos`` against the cache (in place)
-
-Modality front ends and additive position embeddings are not ported
-yet: they raise ``NotImplementedError`` (ROADMAP, Queue 1).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
-                                       init_norm, normal_init, softcap)
+                                       init_norm, normal_init,
+                                       sinusoidal_pos_emb, softcap)
 
 VOCAB_PAD = 256  # pad vocab to a multiple of this (TP divisibility)
 
@@ -56,15 +58,6 @@ class RunConfig:
     loss_chunk: int = 1024  # seq-chunked vocab xent (recomputed)
     rwkv_chunk: int = 64  # wkv recurrence chunk (train and prefill)
     mla_absorb: bool = True  # MLA decode in the latent space
-
-
-def check_supported(cfg: ArchConfig, mode: str = "prefill") -> None:
-    """Raise for the parts of ``cfg`` that the port does not run yet in
-    ``mode``."""
-    if cfg.n_frontend or cfg.pos_emb == "sinusoidal":
-        raise NotImplementedError(
-            f"{cfg.name}: modality front ends and sinusoidal position "
-            "embeddings are not ported yet (ROADMAP: Queue 1)")
 
 
 # ===========================================================================
@@ -109,7 +102,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     """Random weights from ``gen`` (which must live on ``device``), with the
     leaf names and shapes of the JAX package's ``init_params``: a stage
     with repeat R > 1 has every leaf stacked along a leading dim of R."""
-    check_supported(cfg)
     device = device_mod.resolve(device)
     dtype = rc.param_dtype
     vp = padded_vocab(cfg.vocab_size)
@@ -161,7 +153,6 @@ def _init_layer_cache(cfg, spec: LayerSpec, batch: int, max_len: int, rc,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                rc: RunConfig = RunConfig(), device="cuda"):
-    check_supported(cfg)
     device = device_mod.resolve(device)
     caches = []
     for stage in cfg.stages:
@@ -272,10 +263,18 @@ def _apply_stage(cfg, stage: Stage, rc, params, x, *, mode, positions, pos,
     return x, aux_total
 
 
-def _embed(cfg: ArchConfig, params, tokens):
+def _embed(cfg: ArchConfig, params, tokens, frontend, positions):
+    """Token embeddings (scaled in f32 where the arch asks), the front end's
+    embeddings cast to their dtype and prepended, then sinusoidal positions
+    added in f32 where the arch has them."""
     x = params["embed"][tokens]
     if cfg.scale_embed:
         x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+    if frontend is not None:
+        x = torch.cat([frontend.to(x.dtype), x], dim=1)
+    if cfg.pos_emb == "sinusoidal":
+        pe = sinusoidal_pos_emb(positions, cfg.d_model)
+        x = (x.float() + pe).to(x.dtype)
     return x
 
 
@@ -290,22 +289,29 @@ def _logits(cfg: ArchConfig, params, x):
     return logits
 
 
-def forward(cfg: ArchConfig, params, tokens, *, mode: str = "prefill",
-            caches=None, pos: Optional[int] = None,
+def forward(cfg: ArchConfig, params, tokens, *, frontend=None,
+            mode: str = "prefill", caches=None, pos: Optional[int] = None,
             rc: RunConfig = RunConfig()):
-    """tokens: (B,S) [decode: (B,1)]. Returns (hidden, caches, aux): hidden
-    is the final-norm output; the caches, when given, are updated in place;
-    aux is the summed MoE aux loss (0.0 without MoE). ``rc`` gives the RWKV
-    chunk and the MLA decode path."""
+    """tokens: (B,S) [decode: (B,1)]; frontend: None or (B,Nf,d_model)
+    embeddings prepended in train and prefill. Returns (hidden, caches,
+    aux): hidden is the final-norm output over all S + Nf rows; the caches,
+    when given, are updated in place; aux is the summed MoE aux loss (0.0
+    without MoE). ``rc`` gives the RWKV chunk and the MLA decode path."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the port runs train, prefill and "
                          "decode")
-    check_supported(cfg, mode)
-    positions = None
-    if mode != "decode":
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed(cfg, params, tokens)
-    n_groups = moe_mod.default_groups(tokens.shape[0], tokens.shape[1], mode)
+    b, s = tokens.shape
+    if mode == "decode":
+        positions = None
+        x = _embed(cfg, params, tokens, None,
+                   torch.full((b, 1), pos, dtype=torch.int64,
+                              device=tokens.device)
+                   if cfg.pos_emb == "sinusoidal" else None)
+    else:
+        total = s + (frontend.shape[1] if frontend is not None else 0)
+        positions = torch.arange(total, device=tokens.device)
+        x = _embed(cfg, params, tokens, frontend, positions[None])
+    n_groups = moe_mod.default_groups(b, x.shape[1], mode)
     aux_total = 0.0
     for i, stage in enumerate(cfg.stages):
         x, aux = _apply_stage(cfg, stage, rc, params["stages"][i], x,
@@ -357,10 +363,14 @@ def _chunked_xent(cfg: ArchConfig, rc: RunConfig, params, x, labels):
 
 def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch,
             aux_coef: float = 0.01):
-    """batch: tokens (B,S), labels (B,S) (-1 = masked), integer tensors.
-    Returns (loss, {"xent", "aux"})."""
-    hidden, _, aux = forward(cfg, params, batch["tokens"], mode="train",
-                             rc=rc)
+    """batch: tokens (B,S), labels (B,S) (-1 = masked), integer tensors;
+    optional frontend_embeds (B,Nf,d_model), float. The loss covers the
+    token rows only. Returns (loss, {"xent", "aux"})."""
+    frontend = batch.get("frontend_embeds")
+    hidden, _, aux = forward(cfg, params, batch["tokens"],
+                             frontend=frontend, mode="train", rc=rc)
+    nf = frontend.shape[1] if frontend is not None else 0
+    hidden = hidden[:, nf:]  # token positions only
     aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
     sum_e, sum_m = _chunked_xent(cfg, rc, params, hidden, batch["labels"])
     xent = sum_e / torch.clamp(sum_m, min=1.0)
@@ -370,10 +380,12 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch,
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params, tokens, caches,
-            rc: RunConfig = RunConfig()):
-    """Returns (last-position logits (B,V), filled caches)."""
-    hidden, caches, _ = forward(cfg, params, tokens, mode="prefill",
-                                caches=caches, rc=rc)
+            rc: RunConfig = RunConfig(), frontend=None):
+    """Returns (last-position logits (B,V), filled caches). With a
+    ``frontend`` (B,Nf,d_model) the cache holds Nf + S positions, and
+    decode continues at Nf + S."""
+    hidden, caches, _ = forward(cfg, params, tokens, frontend=frontend,
+                                mode="prefill", caches=caches, rc=rc)
     return _logits(cfg, params, hidden[:, -1:])[:, -1], caches
 
 
@@ -393,7 +405,6 @@ class Model:
 
     def __init__(self, cfg: ArchConfig, rc: RunConfig = RunConfig(),
                  device="cuda"):
-        check_supported(cfg)
         self.cfg = cfg
         self.rc = rc
         self.device = device_mod.resolve(device)
@@ -409,8 +420,9 @@ class Model:
     def loss(self, params, batch):
         return loss_fn(self.cfg, self.rc, params, batch)
 
-    def prefill(self, params, tokens, caches):
-        return prefill(self.cfg, params, tokens, caches, self.rc)
+    def prefill(self, params, tokens, caches, frontend=None):
+        return prefill(self.cfg, params, tokens, caches, self.rc,
+                       frontend=frontend)
 
     def decode_step(self, params, tokens, pos: int, caches):
         return decode_step(self.cfg, params, tokens, pos, caches, self.rc)

@@ -4,7 +4,11 @@ Port of ``repro/optim/adamw.py``. Parameters, gradients and moments are
 nested dicts and lists of tensors with the parameters' structure; the step
 is a 0-d int32 tensor, as in the JAX package. Every cast happens where the
 reference casts: the moments and the update are computed in f32 and the
-new parameter is cast back to its own dtype.
+new parameter is cast back to its own dtype. ``adamw_update`` writes the
+new parameters and moments into the given ones, leaf by leaf, as the JAX
+train step donates its parameter and optimizer buffers to XLA: a step
+then holds the train state once, not twice (musicgen-large's whole
+38.8 GB state would not fit twice on an 80 GB card).
 """
 from __future__ import annotations
 
@@ -40,34 +44,42 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
+def _clip_scale(grads, max_norm: float):
+    """Returns (the factor that scales ``grads`` to a global norm of at most
+    ``max_norm``, the global norm)."""
+    leaves = tree_leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Returns (grads scaled to a global norm of at most ``max_norm``,
     the global norm before scaling)."""
-    leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    scale, gn = _clip_scale(grads, max_norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
 
 def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
-    """Returns (new_params, new_opt_state, grad_norm)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """Returns (new_params, new_opt_state, grad_norm). The new parameters
+    and moments are written into ``params`` and ``opt_state``'s, which are
+    returned (the step is a new tensor); each leaf is clipped, moved and
+    updated in turn, with the reference's arithmetic."""
+    scale, gnorm = _clip_scale(grads, cfg.grad_clip)
     step = opt_state["step"] + 1
     lr = _schedule(cfg, step)
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()
 
-    m_new = tree_map(lambda g, m: cfg.b1 * m + (1 - cfg.b1) * g.float(),
-                     grads, opt_state["m"])
-    v_new = tree_map(lambda g, v: cfg.b2 * v + (1 - cfg.b2) * torch.square(
-        g.float()), grads, opt_state["v"])
-
-    def upd(p, m, v):
+    def upd(p, g, m, v):
+        gf = (g.float() * scale).to(g.dtype).float()
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(gf))
         mhat = m / b1c
         vhat = v / b2c
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + \
             cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype)
+        p.copy_((p.float() - lr * delta).to(p.dtype))
 
-    return tree_map(upd, params, m_new, v_new), {
-        "m": m_new, "v": v_new, "step": step}, gnorm
+    tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
+    return params, {"m": opt_state["m"], "v": opt_state["v"],
+                    "step": step}, gnorm

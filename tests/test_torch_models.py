@@ -1,5 +1,6 @@
 """The port's model (repro_torch.models: dense, hybrid Mamba/attention,
-MoE, RWKV6 and MLA stacks) against the JAX package.
+MoE, RWKV6 and MLA stacks, and the modality front ends) against the JAX
+package.
 
 Inputs are made from a seed with numpy and handed to both packages; the
 JAX parameters and caches are carried into the port with
@@ -172,7 +173,9 @@ def test_prefill_and_decode_match_jax(repeat0, small_rc):
                                   "stablelm-12b-reduced",
                                   "phi3.5-moe-42b-a6.6b-reduced",
                                   "rwkv6-1.6b-reduced",
-                                  "minicpm3-4b-reduced"])
+                                  "minicpm3-4b-reduced",
+                                  "qwen2-vl-2b-reduced",
+                                  "musicgen-large-reduced"])
 def test_hybrid_and_moe_prefill_and_decode_match_jax(arch, small_rc):
     """Jamba's superblock (Mamba + attention, dense + MoE), a MoE stack
     with shared experts, qkv biases (qwen1.5), layernorm (stablelm) and
@@ -180,34 +183,45 @@ def test_hybrid_and_moe_prefill_and_decode_match_jax(arch, small_rc):
     MoE groups, capacity 2. RWKV6 prefills in 16-token chunks (40 tokens:
     the last chunk padded) and decodes from its shifts and wkv states;
     minicpm3's MLA prefills with D = 16, Dv = 8 and decodes absorbed from
-    the compressed cache."""
+    the compressed cache. qwen2-vl and musicgen prefill 4 random front-end
+    embeddings before the tokens and decode from position 4 + S (qwen2-vl
+    rotates its text at those absolute positions; musicgen adds sinusoidal
+    positions and runs MHA with a plain GELU MLP and layernorm)."""
     _check_prefill_and_decode(*_configs(1, arch), small_rc,
                               np.random.default_rng(7))
 
 
 def _check_prefill_and_decode(jcfg, pcfg, small_rc, rng):
+    """Teacher-forced prefill and decode, logits and every cache leaf within
+    1e-4; an arch with a front end prefills ``n_frontend`` random
+    embeddings (std 1) first and decodes after them."""
     b, s, n_dec = 2, 40, 6
-    max_len = s + n_dec
+    nf = jcfg.n_frontend
+    max_len = nf + s + n_dec
     model = jtf.Model(jcfg, small_rc)
     jparams = model.init(jax.random.key(0))
     jcaches = model.init_cache(b, max_len)
     params = params_from_jax(_np_tree(jparams), CPU)
     caches = caches_from_jax(_np_tree(jcaches), CPU)
     toks = rng.integers(0, jcfg.vocab_size, (b, s + n_dec), dtype=np.int32)
+    front = _rand(rng, (b, nf, jcfg.d_model)) if nf else None
     tol = dict(atol=1e-4, rtol=1e-4)
 
     jprefill, jdecode = jax.jit(model.prefill), jax.jit(model.decode_step)
-    jl, jcaches = jprefill(jparams, jnp.asarray(toks[:, :s]), jcaches)
+    jl, jcaches = jprefill(jparams, jnp.asarray(toks[:, :s]), jcaches,
+                           None if front is None else jnp.asarray(front))
     pl, caches = ptf.prefill(pcfg, params, torch.from_numpy(toks[:, :s])
-                             .long(), caches, PORT_RC)
+                             .long(), caches, PORT_RC,
+                             frontend=None if front is None
+                             else torch.from_numpy(front))
     _close(pl, jl, **tol)
     for step in range(n_dec):  # teacher-forced
         t = toks[:, s + step:s + step + 1]
         jl, jcaches = jdecode(jparams, jnp.asarray(t),
-                              jnp.asarray(s + step, jnp.int32), jcaches)
+                              jnp.asarray(nf + s + step, jnp.int32), jcaches)
         pl, caches = ptf.decode_step(pcfg, params,
-                                     torch.from_numpy(t).long(), s + step,
-                                     caches, PORT_RC)
+                                     torch.from_numpy(t).long(),
+                                     nf + s + step, caches, PORT_RC)
         _close(pl, jl, **tol)
     jflat, pflat = jax_flatten(jcaches), port_flatten(caches)
     assert sorted(jflat) == sorted(pflat)
@@ -283,9 +297,3 @@ def test_init_leaves_match_jax_full_jamba():
     for jleaf, pleaf in zip(jax.tree.leaves(jcache),
                             jax.tree.leaves(pcache)):
         assert str(pleaf.dtype) == f"torch.{jleaf.dtype}"
-
-
-@pytest.mark.parametrize("arch", ["musicgen-large-reduced"])
-def test_unported_mixers_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptf.Model(port_get_config(arch), PORT_RC, device=CPU)

@@ -99,8 +99,11 @@ def test_adamw_update_matches_jax(grad_scale, start_step):
            "step": torch.tensor(start_step, dtype=torch.int32)}
     jp, jst, jn = jadamw.adamw_update(jadamw.AdamWConfig(**kw),
                                       _jax(grads), jst, _jax(params))
+    p_in, m_in = _torch(params), pst["m"]
     pp, pst, pn = padamw.adamw_update(padamw.AdamWConfig(**kw),
-                                      _torch(grads), pst, _torch(params))
+                                      _torch(grads), pst, p_in)
+    # written in place, as the JAX train step's donated buffers
+    assert pp is p_in and pst["m"] is m_in
     assert pst["step"].dtype == torch.int32
     assert int(pst["step"]) == int(jst["step"]) == start_step + 1
     np.testing.assert_allclose(pn.numpy(), np.asarray(jn), rtol=REL)

@@ -87,13 +87,17 @@ def test_serve_jamba_bf16_failover_matches_uninterrupted_run(small_blocks,
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b-reduced",
-                                  "minicpm3-4b-reduced"])
+                                  "minicpm3-4b-reduced",
+                                  "qwen2-vl-2b-reduced",
+                                  "musicgen-large-reduced"])
 def test_serve_rwkv_and_mla_failover_matches_uninterrupted_run(
         arch, small_blocks, tmp_path):
     """RWKV6's session state (the shifts and the f32 wkv states, O(1) a
     sequence) and MLA's compressed cache (latents and rope keys) go
     through the delta snapshots, the kill and the failover: the resumed
-    tokens and final logits equal an uninterrupted run's."""
+    tokens and final logits equal an uninterrupted run's. So do the KV
+    caches of the two front-end archs, whose first 4 positions hold the
+    front end's rows and whose decode resumes at 4 + prompt + i."""
     args = ["--device", "cpu", "--arch", arch, "--batch", "2",
             "--prompt-len", "24", "--gen", "12", "--snapshot-every", "4"]
     toks, stats = serve.main(args + ["--inject-failure", "6", "--workdir",
@@ -242,7 +246,8 @@ def test_importing_the_port_loads_no_jax():
 _COPIES = (sorted((ROOT / "src/repro/core").glob("*.py"))
            + sorted((ROOT / "src/repro/configs").glob("*.py"))
            + [ROOT / "src/repro/ckpt/delta.py"]
-           + sorted((ROOT / "src/repro/data").glob("*.py")))
+           + sorted((ROOT / "src/repro/data").glob("*.py"))
+           + sorted((ROOT / "src/repro/fs").glob("*.py")))
 
 
 @pytest.mark.parametrize("src", _COPIES,

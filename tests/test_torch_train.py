@@ -54,13 +54,17 @@ def _configs(arch, repeat0=1):
     return fix(jax_get_config(arch)), fix(port_get_config(arch))
 
 
-def _batch(vocab, b=2, s=100, seed=0):
+def _batch(vocab, b=2, s=100, seed=0, cfg=None):
     """S = 100 with 64-token loss chunks: two chunks, 28 padded labels; a
-    few labels masked with -1."""
+    few labels masked with -1. For an arch with a front end, random
+    ``frontend_embeds`` (std 1) drawn after the tokens."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, (b, s + 1), dtype=np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
     batch["labels"][0, :5] = -1
+    if cfg is not None and cfg.n_frontend:
+        batch["frontend_embeds"] = rng.standard_normal(
+            (b, cfg.n_frontend, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -74,7 +78,9 @@ def _grads_by_name(params, grads):
     ("deepseek-moe-16b-reduced", 1), ("qwen1.5-32b-reduced", 1),
     ("stablelm-12b-reduced", 1), ("phi3.5-moe-42b-a6.6b-reduced", 1),
     ("jamba-1.5-large-398b-reduced", 1), ("rwkv6-1.6b-reduced", 1),
-    ("rwkv6-1.6b-reduced", 2), ("minicpm3-4b-reduced", 2)])
+    ("rwkv6-1.6b-reduced", 2), ("minicpm3-4b-reduced", 2),
+    ("qwen2-vl-2b-reduced", 1), ("musicgen-large-reduced", 1),
+    ("musicgen-large-reduced", 2)])
 def test_loss_and_grads_match_jax(arch, repeat0, small_rc):
     """The loss, its parts and every gradient leaf against
     ``jax.value_and_grad(loss_fn)``. gemma3-1b with a first stage of
@@ -83,10 +89,13 @@ def test_loss_and_grads_match_jax(arch, repeat0, small_rc):
     the scan's backward (``ssm_scan_bwd_ref``), where JAX differentiates
     its chunked associative scan. RWKV6 differentiates its wkv chunks
     (with repeat 2, under recompute); minicpm3's stacked MLA layers run
-    flash attention's backward with Dv != D under recompute."""
+    flash attention's backward with Dv != D under recompute. qwen2-vl and
+    musicgen (also with repeat 2, under recompute) take random
+    ``frontend_embeds``, whose rows the loss drops; the embeddings get no
+    gradient, the parameters get theirs through the front end's rows."""
     jcfg, pcfg = _configs(arch, repeat0)
     jparams = jtf.init_params(jcfg, jax.random.key(0), small_rc)
-    batch = _batch(jcfg.vocab_size)
+    batch = _batch(jcfg.vocab_size, cfg=jcfg)
     (jl, jm), jg = jax.jit(jax.value_and_grad(
         lambda p: jtf.loss_fn(jcfg, small_rc, p, jax.tree.map(
             jnp.asarray, batch)), has_aux=True))(jparams)
@@ -242,17 +251,15 @@ def test_rwkv_failover_resume_is_bit_exact(small_blocks, tmp_path):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
-def test_unported_mixers_raise_in_train_mode():
-    """Mamba, RWKV6 and MLA train (Jamba, rwkv6 and minicpm3 pass the
-    train-mode check); modality front ends and sinusoidal position
-    embeddings are not ported and still raise, in train mode as in
-    serving."""
-    for arch in ("jamba-1.5-large-398b-reduced", "rwkv6-1.6b-reduced",
-                 "rwkv6-1.6b", "minicpm3-4b-reduced", "minicpm3-4b"):
-        ptf.check_supported(port_get_config(arch), "train")
-    for arch in ("qwen2-vl-2b-reduced", "musicgen-large-reduced"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ptf.check_supported(port_get_config(arch), "train")
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b-reduced",
+                                  "musicgen-large-reduced"])
+def test_frontend_failover_resume_is_bit_exact(arch, small_blocks, tmp_path):
+    """The same kill and resume with a front end: each step's
+    ``frontend_embeds`` come from the pipeline's Philox stream for that
+    step, so the resumed steps see the same embeddings (and musicgen the
+    same sinusoidal positions) as the uninterrupted run."""
+    losses = _check_failover_resume(arch, small_blocks, tmp_path)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
 def test_train_defaults_to_the_card():
