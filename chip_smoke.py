@@ -47,6 +47,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
              against the same weights on the CPU, f32 (the last two with 4
              random front-end embeddings before the prompt, decoding after
              them); each arch's train loss and gradients likewise
+  roofline   beside the build and the kernel phases, a process on no card
+             counts one step of every serve and train phase below on the
+             meta device (repro_torch.roofline: counted FLOPs and bytes,
+             the five kernels' analytic work, the compulsory bytes)
   serve      full-width gemma3-1b (f32) through repro_torch.launch.serve:
              batch 4, prompt 1024, 32 tokens, a delta snapshot every 8, a
              node kill and failover at 20; tokens and final logits equal to
@@ -71,6 +75,11 @@ Phases, one printed line each; any failure raises and exits non-zero:
              0.88 GB KV cache); then the whole 48 layers once without
              snapshots (a 3.52 GB cache): prefill and 32 decode steps,
              tokens in range and logits finite
+  examples   the three example twins (examples/*_torch.py) on the card:
+             quickstart's finite loss and its read after failover; the
+             serve twin (rwkv6-1.6b-reduced, a kill at token 24) equal to
+             an uninterrupted run; the train twin (gemma3-1b-reduced, 14
+             steps, a kill after the tenth) resumed bit for bit
   train      full-width gemma3-1b (f32, the 262,144 vocabulary) cut to its
              first superblock (6 layers, 5 local + 1 global) through
              repro_torch.launch.train: batch 4, seq 1024, 8 steps, a delta
@@ -94,22 +103,36 @@ Phases, one printed line each; any failure raises and exits non-zero:
              (the pipeline's front-end embeddings for each step), and 2
              steps each of the whole qwen2-vl-2b and the whole
              musicgen-large, flash_attention and its backward launched at
-             S = 1024 + 256 and 1024 + 64. It runs in a child process with
-             CUBLAS_WORKSPACE_CONFIG set, which the deterministic train
-             step needs and which would slow the serve phases' decode
-Each serve and train line ends with its phase's seconds. Then one JSON
-line with every kernel's numbers (launches summed over the main-path
-runs: the six serve runs with a node kill and the whole musicgen-large
-serve, the six train runs with a node kill, and the Jamba L0,
-rwkv6-1.6b, minicpm3 8-layer, qwen2-vl-2b and musicgen-large train runs;
-flash_attention's entry is gemma3-1b's f32 case,
+             S = 1024 + 256 and 1024 + 64. The examples and train phases
+             run in a child process with CUBLAS_WORKSPACE_CONFIG set, which
+             the deterministic train step needs and which would slow the
+             serve phases' decode
+Each serve and train line ends with its phase's seconds and is followed by
+a line for each of its steps (prefill and decode; train):
+  roofline <label> <kind>: counted F TFLOP, B GB (min M GB), bound T ms
+  (<dominant>), measured X ms, roofline_fraction R, model-flops share S;
+  bound/measured Q; kernels K of the FLOPs
+T is the larger of the counted FLOPs at the card's peak for the step's
+dtype and the counted bytes at its memory rate; X is the least prefill of
+the phase's three serve runs, the decode step without snapshots, or the
+mean train step of the run without checkpoints; R is repro_torch.roofline's
+(the model FLOPs, 6 or 2 x active parameters x rows, at the peak, over T);
+S is model over counted FLOPs. Then one JSON line {"roofline": [...]}, an
+entry for each of those steps; one JSON line with every kernel's numbers
+(launches summed over the main-path runs: the six serve runs with a node
+kill and the whole musicgen-large serve, the quickstart and the two example
+runs with a kill, the six train runs with a node kill, and the Jamba L0,
+gemma3-1b 26-layer, rwkv6-1.6b, minicpm3 8-layer, qwen2-vl-2b and
+musicgen-large train runs; flash_attention's entry is gemma3-1b's f32 case,
 flash_attention_bwd's its window-512 train case, each with every case
-under "cases"), and the last line {"ok": true, "device": {...}}. Times are
-CUDA-event medians of 20 runs.
+under "cases"; each bound from the work function in the kernel's module),
+and the last line {"ok": true, "device": {...}}. Kernel times are CUDA-event
+medians of 20 runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -123,11 +146,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PORT = ROOT / "src" / "repro_torch"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# Dense tensor-core rates (H100 SXM data sheet): bf16 989 TFLOP/s; f32 work
-# runs as 3xTF32, three TF32 products at 494.7 TFLOP/s for each f32 one
-PEAK_FLOPS = {"float32": 494.7e12 / 3, "bfloat16": 989e12}
-CUDA_CORE_F32_FLOPS = 67e12  # f32 outside the tensor cores, for comparison
+# the card's rates are repro_torch.roofline's (H100 SXM data sheet): HBM
+# 3.35e12 B/s, bf16 989e12 FLOP/s, f32 as 3xTF32 (494.7e12 / 3); and
+CUDA_CORE_F32_FLOPS = 67e12  # f32 outside the tensor cores (the scans)
 REPS = 20
 BWD_TOL = 1e-4  # flash_attention_bwd: of each gradient's largest element
 SERVE_ARGS = ["--arch", "gemma3-1b", "--batch", "4", "--prompt-len", "1024",
@@ -217,7 +238,15 @@ def phase_build(_build) -> None:
           f"(sm_90a); " + "; ".join(usage), flush=True)
 
 
-def phase_delta(torch, ops, ref, changed_blocks) -> dict:
+def bound(rl, work, flops_per_s):
+    """(bound ms, "operations" or "bytes"): the larger of ``work``'s
+    (flops, bytes) at ``flops_per_s`` and at the card's memory rate."""
+    t_ops = work[0] / flops_per_s * 1e3
+    t_bytes = work[1] / rl.HBM_BW * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_delta(torch, ops, ref, changed_blocks, rl, delta) -> dict:
     n, block, bpt = 256 << 20, 1 << 16, 8
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -240,30 +269,15 @@ def phase_delta(torch, ops, ref, changed_blocks) -> dict:
     ms = time_ms(torch, lambda: ops.delta_mask(new, old, block=block,
                                                bpt=bpt))
     plain_ms = time_ms(torch, lambda: ref.delta_mask_ref(new, old, block))
-    bound_ms = (2 * n + n // block) / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = bound(rl, delta.work(n, block), CUDA_CORE_F32_FLOPS)
     print(f"delta_mask: {n >> 20} MiB, block {block}: exact vs plain and "
           f"host scan; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({2 * n / ms / 1e6:.0f} GB/s)", flush=True)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def _attn_work(b, h, hk, s, d, dv, window, itemsize):
-    """Flops of the unmasked (q, k) pairs and bytes of q, k, v, o."""
-    pairs = sum(min(i + 1, window or s) for i in range(s))
-    flops = b * h * pairs * 2 * (d + dv)
-    nbytes = itemsize * (b * h * s * d + b * hk * s * (d + dv)
-                         + b * h * s * dv)
-    return flops, nbytes
-
-
-def _head_tile(d, dv):
-    """The head width both flash kernels compute at: max(D, Dv) rounded up
-    to 64, 128 or 256, the zero-filled columns included."""
-    return next(t for t in (64, 128, 256) if max(d, dv) <= t)
-
-
-def phase_flash(torch, ops, ref) -> dict:
+def phase_flash(torch, ops, ref, rl, flash) -> dict:
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gemma = (4, 4, 1, 256, 256)  # B, H, Hk, D, Dv of gemma3-1b's prefill
@@ -314,28 +328,25 @@ def phase_flash(torch, ops, ref) -> dict:
                                                       attn_mask=allowed)
         library_ms = time_ms(torch, lib)
         name = str(dtype).split(".")[-1]
-        flops, nbytes = _attn_work(b, h, hk, s, d, dv, window,
-                                   q.element_size())
-        t_ops = flops / PEAK_FLOPS[name] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(t_ops, t_bytes)
+        peak = rl.PEAK_FLOPS[name]
+        work = flash.work(b, h, hk, s, d, dv, window, q.element_size())
+        flops, nbytes = work
+        bound_ms, bound_by = bound(rl, work, peak)
         path = "mma" if dtype == torch.bfloat16 else "tf32"
         label = (f"{name} B={b} H={h} Hk={hk} S={s} D={d}"
                  f"{'' if dv == d else f' Dv={dv}'} window={window} {path}")
-        rate = f"at {PEAK_FLOPS[name] / 1e12:.1f} TFLOP/s"
+        rate = f"at {peak / 1e12:.1f} TFLOP/s"
         if dtype == torch.float32:
             rate += (f" (3xTF32); at the CUDA-core "
                      f"{CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s "
-                     f"{max(flops / CUDA_CORE_F32_FLOPS * 1e3, t_bytes):.4f}"
-                     f" ms")
-        tile = _head_tile(d, dv)
+                     f"{bound(rl, work, CUDA_CORE_F32_FLOPS)[0]:.4f} ms")
+        tile = flash.head_tile(d, dv)
         if tile != d or tile != dv:  # both products run tile columns wide
-            padded = flops * 2 * tile / (d + dv)
+            padded = (flash.padded_flops(flops, d, dv), nbytes)
             rate += (f"; the kernel computes at head width {tile}: "
                      f"{(d + dv) / (2 * tile):.1%} of its products are "
                      f"real, bound at the padded work "
-                     f"{max(padded / PEAK_FLOPS[name] * 1e3, t_bytes):.4f}"
-                     f" ms")
+                     f"{bound(rl, padded, peak)[0]:.4f} ms")
         print(f"flash_attention[{label}]: max_abs_err {err:.3e} (tol "
               f"{tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms {rate} "
@@ -346,8 +357,7 @@ def phase_flash(torch, ops, ref) -> dict:
         results[(name, s, window, h)] = {
             "label": label, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms}
         del q, k, v, ke, ve, out, exp
     # the kernel's entry: gemma3-1b's own case (f32 prefill of a local
     # layer, 22 of its 26), with the worst error of all cases, and every
@@ -361,7 +371,7 @@ def phase_flash(torch, ops, ref) -> dict:
     return main
 
 
-def phase_flash_bwd(torch, ops, ref, flash) -> dict:
+def phase_flash_bwd(torch, ref, rl, flash) -> dict:
     """The backward kernel at gemma3-1b's train shapes (f32): local layers
     (window 512), the global layer, and a ragged S; then at minicpm3-4b's
     MLA heads (D = 96, Dv = 64, H = Hk = 40), musicgen-large's (MHA, D = 64,
@@ -421,41 +431,38 @@ def phase_flash_bwd(torch, ops, ref, flash) -> dict:
         o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=allowed)
         library_ms = time_ms(torch, lambda: torch.autograd.grad(
             o_lib, (qr, kr, vr), dout, retain_graph=True))
-        pairs = sum(min(r + 1, window or s) for r in range(s))
-        flops = b * h * pairs * 2 * (3 * d + 2 * dv)
-        nbytes = 4 * (2 * b * h * s * d + 2 * b * hk * s * (d + dv)
-                      + 2 * b * h * s * dv)  # q, dq; k, v, dk, dv; o, dO
-        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-        t_core = flops / CUDA_CORE_F32_FLOPS * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        peak = rl.PEAK_FLOPS["float32"]
+        work = flash.bwd_work(b, h, hk, s, d, dv, window)
+        flops, nbytes = work
+        bound_ms, bound_by = bound(rl, work, peak)
         label = (f"f32 B={b} H={h} Hk={hk} S={s} D={d}"
                  f"{'' if dv == d else f' Dv={dv}'} window={window} tf32")
-        tile = _head_tile(d, dv)
+        tile = flash.head_tile(d, dv)
         padded = ""
         if tile != d or tile != dv:  # each product runs tile columns wide
-            t_pad = flops * 5 * tile / (3 * d + 2 * dv) \
-                / PEAK_FLOPS["float32"] * 1e3
+            t_pad = bound(rl, (flash.padded_flops(flops, d, dv,
+                                                  backward=True), nbytes),
+                          peak)[0]
             padded = (f"; the kernel computes its five products at head "
                       f"width {tile} ({(3 * d + 2 * dv) / (5 * tile):.1%} "
                       f"of them real), bound at the padded work "
-                      f"{max(t_pad, t_bytes):.4f} ms")
+                      f"{t_pad:.4f} ms")
         print(f"flash_attention_bwd[{label}]: max_abs_err {err:.3e} (tol "
               f"{BWD_TOL:g} of each gradient's max); two launches bit-equal; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
-              f"{library_ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms at "
-              f"{PEAK_FLOPS['float32'] / 1e12:.1f} TFLOP/s (3xTF32), "
-              f"{max(t_core, t_bytes):.4f} ms at the CUDA-core "
-              f"{CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s, bytes "
-              f"{t_bytes:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s){padded}",
-              flush=True)
+              f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms at "
+              f"{peak / 1e12:.1f} TFLOP/s (3xTF32), "
+              f"{bound(rl, work, CUDA_CORE_F32_FLOPS)[0]:.4f} ms at the "
+              f"CUDA-core {CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s, bytes "
+              f"{bound(rl, (0, nbytes), peak)[0]:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s){padded}", flush=True)
         if not ok:
             raise AssertionError(f"flash_attention_bwd {label}: max abs err "
                                  f"{err}")
         results[(s, window, h)] = {
             "label": label, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
         del q, k, v, dout, out, lse, got, again, exp, qr, kr, vr, o_lib
         torch.cuda.empty_cache()
     main = dict(results[(1024, 512, 4)])  # gemma's local layers, 5 of 6
@@ -467,7 +474,7 @@ def phase_flash_bwd(torch, ops, ref, flash) -> dict:
     return main
 
 
-def phase_ssm(torch, ops, ref, ssm) -> dict:
+def phase_ssm(torch, ops, ref, rl, ssm) -> dict:
     """The scan at the Jamba prefill shape, then a ragged S and D (16376 is
     not a multiple of the kernel's 16 d's a block). Decays are
     exp(-uniform(0, 0.5)), as Mamba's exp(dt*A) with a small dt."""
@@ -503,23 +510,23 @@ def phase_ssm(torch, ops, ref, ssm) -> dict:
         kept_ms = time_ms(torch, lambda: ssm.ssm_scan_cuda(
             decay, u, c, s0, with_bounds=True))
         plain_ms = time_ms(torch, lambda: ref.ssm_scan_ref(decay, u, c, s0))
-        nbytes = 4 * (2 * b * s * d * n + b * s * n + 2 * b * d * n
-                      + b * s * d)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes = ssm.work(b, s, d, n)[1]
+        bound_ms, bound_by = bound(rl, ssm.work(b, s, d, n),
+                                   CUDA_CORE_F32_FLOPS)
         print(f"ssm_scan[{label}]: max_abs_err {err:.3e} (tol {tol:g}); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s); keeping "
               f"the boundary states for a backward {kept_ms:.4f} ms",
               flush=True)
         result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "bound_by": "bytes",
+                  "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": None}
         del decay, u, c, s0
         torch.cuda.empty_cache()
     return result
 
 
-def phase_ssm_bwd(torch, ref, ssm) -> dict:
+def phase_ssm_bwd(torch, ref, rl, ssm) -> dict:
     """The scan's backward kernel at the Jamba train shape, then a ragged S
     and D, from the forward kernel's boundary states; decays as in
     ``phase_ssm`` with 1 % of them exactly 0 (exp(dt*A) underflows in f32).
@@ -581,9 +588,9 @@ def phase_ssm_bwd(torch, ref, ssm) -> dict:
         ms = time_ms(torch, kernel)
         plain_ms = time_ms(torch, lambda: ref.ssm_scan_bwd_ref(
             decay, u, c, s0, dy))
-        nbytes = 4 * (4 * b * s * d * n + b * s * d + 2 * b * s * n
-                      + 2 * b * d * n)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes = ssm.bwd_work(b, s, d, n)[1]
+        bound_ms, bound_by = bound(rl, ssm.bwd_work(b, s, d, n),
+                                   CUDA_CORE_F32_FLOPS)
         print(f"ssm_scan_bwd[{label}]: max_abs_err {err:.3e}, {worst:.3e} "
               f"of its gradient's max (tol {BWD_TOL:g}); two launches "
               f"bit-equal; boundary states max abs err {bound_err:.3e} (tol "
@@ -591,7 +598,7 @@ def phase_ssm_bwd(torch, ref, ssm) -> dict:
               f"{bound_ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s); library: "
               f"none (no single call)", flush=True)
         result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "bound_by": "bytes",
+                  "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": None}
         del decay, u, c, s0, dy, bounds
         torch.cuda.empty_cache()
@@ -673,11 +680,140 @@ def phase_train_reference(torch, Model, RunConfig, get_config,
         raise AssertionError(f"reference train {arch}: card and CPU differ")
 
 
-def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
+def serve_runs(get_config, Stage) -> list:
+    """(label, serve arguments, kernels that must launch, cfg, whether it
+    runs once without snapshots) of every serve phase."""
+    jamba = get_config("jamba-1.5-large-398b")
+    musicgen = get_config("musicgen-large")
+    return [
+        ("serve gemma3-1b f32", SERVE_ARGS, ("delta_mask", "flash_attention"),
+         get_config("gemma3-1b"), False),
+        (f"serve jamba-1.5-large {JAMBA_LAYERS} layers bf16", JAMBA_ARGS,
+         ("delta_mask", "flash_attention", "ssm_scan"),
+         _cut(jamba, Stage, jamba.stages[0].block[:JAMBA_LAYERS], 1), False),
+        ("serve rwkv6-1.6b f32", RWKV_ARGS, ("delta_mask",),
+         get_config("rwkv6-1.6b"), False),
+        ("serve minicpm3-4b f32", MINICPM_ARGS,
+         ("delta_mask", "flash_attention"), get_config("minicpm3-4b"), False),
+        ("serve qwen2-vl-2b f32", QWEN_VL_ARGS,
+         ("delta_mask", "flash_attention"), get_config("qwen2-vl-2b"), False),
+        (f"serve musicgen-large {MUSICGEN_SERVE_LAYERS} layers f32",
+         MUSICGEN_ARGS, ("delta_mask", "flash_attention"),
+         _cut(musicgen, Stage, musicgen.stages[0].block,
+              MUSICGEN_SERVE_LAYERS), False),
+        ("serve musicgen-large 48 layers f32", MUSICGEN_ARGS,
+         ("flash_attention",), musicgen, True)]
+
+
+def train_configs(get_config, Stage) -> dict:
+    """The config of every train phase, by its label."""
+    gemma = get_config("gemma3-1b")
+    jamba = get_config("jamba-1.5-large-398b")
+    minicpm = get_config("minicpm3-4b")
+    return {
+        "train gemma3-1b 6 layers f32": _cut(gemma, Stage,
+                                             gemma.stages[0].block, 1),
+        "train gemma3-1b 26 layers f32": gemma,
+        "train jamba-1.5-large-398b-reduced f32":
+            get_config("jamba-1.5-large-398b-reduced"),
+        "train jamba-1.5-large L0 (Mamba + dense) f32":
+            _cut(jamba, Stage, jamba.stages[0].block[:1], 1),
+        "train rwkv6-1.6b-reduced f32": get_config("rwkv6-1.6b-reduced"),
+        "train minicpm3-4b-reduced f32": get_config("minicpm3-4b-reduced"),
+        "train rwkv6-1.6b 24 layers f32": get_config("rwkv6-1.6b"),
+        f"train minicpm3-4b {MINICPM_TRAIN_LAYERS} layers f32":
+            _cut(minicpm, Stage, minicpm.stages[0].block,
+                 MINICPM_TRAIN_LAYERS),
+        "train qwen2-vl-2b-reduced f32": get_config("qwen2-vl-2b-reduced"),
+        "train musicgen-large-reduced f32":
+            get_config("musicgen-large-reduced"),
+        "train qwen2-vl-2b whole f32": get_config("qwen2-vl-2b"),
+        "train musicgen-large whole f32": get_config("musicgen-large")}
+
+
+def _cut(cfg, Stage, block, repeat):
+    """``cfg`` cut to one stage: ``block`` repeated ``repeat`` times."""
+    return dataclasses.replace(cfg, stages=(Stage(block=block,
+                                                  repeat=repeat),))
+
+
+def count_rooflines() -> dict:
+    """The counted roofline terms of one step of every serve and train
+    phase, by "<label> <kind>", on the meta device (no card): serve
+    prefills batch 4 x (front-end rows + 1024) and decodes one step at the
+    loop's first position against its cache of front-end rows + 1024 + 32
+    positions; train takes one step of batch 4 x 1024 after the front-end
+    rows. Model FLOPs count every row."""
+    from repro_torch import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Stage
+    from repro_torch.launch import serve, train
+    from repro_torch.models import count_active_params
+
+    plan = []
+    for label, args, _, cfg, _ in serve_runs(get_config, Stage):
+        dtype = serve.DTYPES[args[args.index("--dtype") + 1]
+                             if "--dtype" in args else "float32"]
+        nf = cfg.n_frontend
+        plan.append((label, "prefill", cfg, serve.run_config(dtype),
+                     dict(seq=1024, frontend_rows=nf), 4 * (nf + 1024)))
+        plan.append((label, "decode", cfg, serve.run_config(dtype),
+                     dict(seq=nf + 1024 + 32, pos=nf + 1024), 4))
+    for label, cfg in train_configs(get_config, Stage).items():
+        plan.append((label, "train", cfg, train.RUN_CONFIG,
+                     dict(seq=1024, frontend_rows=cfg.n_frontend),
+                     4 * (cfg.n_frontend + 1024)))
+    out = {}
+    for label, kind, cfg, rc, shape, rows in plan:
+        cost = roofline.step_cost(cfg, rc, kind, 4, **shape)
+        out[f"{label} {kind}"] = roofline.roofline_terms(
+            cost, dtype=rc.param_dtype, model_flops_per_chip=(
+                roofline.model_flops(count_active_params(cfg), kind, rows)))
+    return out
+
+
+class Rooflines:
+    """The counted terms of every phase's step and the entries printed so
+    far: ``report`` prints a step's counted work and bound beside its
+    measured time."""
+
+    def __init__(self, terms: dict):
+        self.terms = terms
+        self.entries = []
+
+    def report(self, label: str, kind: str, measured_s: float) -> None:
+        t = self.terms[f"{label} {kind}"]
+        bound_s = t["step_s_lower_bound"]
+        print(f"roofline {label} {kind}: counted "
+              f"{t['counted_flops_per_chip'] / 1e12:.4f} TFLOP, "
+              f"{t['counted_bytes_per_chip'] / 1e9:.3f} GB (min "
+              f"{t['min_bytes_per_chip'] / 1e9:.3f} GB), bound "
+              f"{bound_s * 1e3:.4f} ms ({t['dominant']}), measured "
+              f"{measured_s * 1e3:.4f} ms, roofline_fraction "
+              f"{t['roofline_fraction']:.4f}, model-flops share "
+              f"{t['useful_flops_ratio']:.4f}; bound/measured "
+              f"{bound_s / measured_s:.4f}; kernels "
+              f"{t['kernel_flops_share']:.1%} of the FLOPs", flush=True)
+        self.entries.append({
+            "label": label, "kind": kind,
+            "counted_flops": t["counted_flops_per_chip"],
+            "counted_bytes": t["counted_bytes_per_chip"],
+            "min_bytes": t["min_bytes_per_chip"],
+            "kernel_flops_share": t["kernel_flops_share"],
+            "bound_ms": bound_s * 1e3, "dominant": t["dominant"],
+            "measured_ms": measured_s * 1e3,
+            "bound_over_measured": bound_s / measured_s,
+            "roofline_fraction": t["roofline_fraction"],
+            "model_flops_share": t["useful_flops_ratio"]})
+
+
+def phase_serve(torch, serve, launches, roof, label, args, needs,
+                cfg) -> dict:
     """Serve ``cfg`` with a node kill at 20, then uninterrupted, then
     without snapshots; the kernels in ``needs`` must launch on the first
     run. An arch with a front end prefills its ``n_frontend`` stub
-    embeddings before each prompt."""
+    embeddings before each prompt. The roofline lines hold the least
+    prefill of the three runs and the decode step without snapshots."""
     t0 = time.time()
     for k in launches:
         launches[k] = 0
@@ -713,9 +849,13 @@ def phase_serve(torch, serve, launches, label, args, needs, cfg) -> dict:
           f"decode {ref_stats['decode_tok_s']:.2f} tok/s (prefill "
           f"{ref_stats['prefill_s']:.4f} s); without snapshots "
           f"{bare['decode_tok_s']:.2f} tok/s ({bare['decode_step_ms']:.2f} "
-          f"ms a step); peak memory {peak} bytes ({peak / 1e9:.2f} GB); "
-          f"tokens and final logits equal; launches {counts}; phase "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"ms a step, prefill {bare['prefill_s']:.4f} s); peak memory "
+          f"{peak} bytes ({peak / 1e9:.2f} GB); tokens and final logits "
+          f"equal; launches {counts}; phase {time.time() - t0:.1f} s",
+          flush=True)
+    roof.report(label, "prefill", min(r["prefill_s"]
+                                      for r in (stats, ref_stats, bare)))
+    roof.report(label, "decode", bare["decode_step_ms"] / 1e3)
     return counts
 
 
@@ -725,7 +865,8 @@ def _rows(cfg) -> str:
     return f"{nf} front-end rows + prompt 1024" if nf else "prompt 1024"
 
 
-def serve_once(torch, serve, launches, label, args, needs, cfg) -> dict:
+def serve_once(torch, serve, launches, roof, label, args, needs,
+               cfg) -> dict:
     """Serve ``cfg`` once without snapshots (no kill): tokens in range,
     logits finite, the kernels in ``needs`` launched."""
     t0 = time.time()
@@ -747,16 +888,19 @@ def serve_once(torch, serve, launches, label, args, needs, cfg) -> dict:
           f"({stats['peak_bytes'] / 1e9:.2f} GB); tokens in range, logits "
           f"finite; launches {counts}; phase {time.time() - t0:.1f} s",
           flush=True)
+    roof.report(label, "prefill", stats["prefill_s"])
+    roof.report(label, "decode", stats["decode_step_ms"] / 1e3)
     return counts
 
 
-def train_kill_and_resume(torch, train, launches, label, args, cfg, needs):
+def train_kill_and_resume(torch, train, launches, roof, label, args, cfg,
+                          needs):
     """Train ``cfg`` with a node kill after step 7 (checkpoints after steps
     2 and 5; resume at 6), then uninterrupted without checkpoints: the
     losses from the resumed step on and the final parameters must be
     bit-equal, and the kernels in ``needs`` must launch on the kill run.
-    Returns (losses, stats, uninterrupted stats, the kill run's
-    launches)."""
+    The roofline line holds the uninterrupted run's mean step. Returns the
+    kill run's launches."""
     t0 = time.time()
     for k in launches:
         launches[k] = 0
@@ -792,148 +936,167 @@ def train_kill_and_resume(torch, train, launches, label, args, cfg, needs):
           f"{stats['peak_bytes']} bytes ({stats['peak_bytes'] / 1e9:.2f} "
           f"GB); losses from step 6 and final params CRC equal; launches "
           f"{counts}; phase {time.time() - t0:.1f} s", flush=True)
+    roof.report(label, "train", ref_stats["step_ms"] / 1e3)
     return counts
 
 
-def phase_train(torch, train, launches, get_config, Stage) -> dict:
+def phase_train(torch, train, launches, roof, get_config, Stage) -> dict:
     """Train gemma3-1b's first superblock at full width with a node kill
     and a bit-exact resume, then 2 steps of the whole model; then
     jamba-1.5-large-398b-reduced with the same kill and resume, and 3 steps
     of full-width Jamba-1.5-Large cut to its first layer; then the same
-    for RWKV6 and MLA. Returns the kernel launches of the kill runs and the
-    full-width runs without checkpoints, summed."""
-    gemma = get_config("gemma3-1b")
-    cut = dataclasses.replace(gemma, stages=(
-        Stage(block=gemma.stages[0].block, repeat=1),))
-    counts = train_kill_and_resume(
-        torch, train, launches, "train gemma3-1b 6 layers f32", TRAIN_ARGS,
-        cut, ("delta_mask", "flash_attention", "flash_attention_bwd"))
-    full, full_stats = train.main(TRAIN_ARGS + [
-        "--arch", "gemma3-1b", "--steps", "2", "--ckpt-every", "0"])
-    torch.cuda.empty_cache()
-    if not all(map(math.isfinite, full)):
-        raise AssertionError(f"train gemma3-1b 26 layers: losses {full}")
-    print(f"train gemma3-1b 26 layers f32: batch 4, seq 1024, 2 steps; step "
-          f"{full_stats['step_ms']:.1f} ms; loss {full[0]:.4f} -> "
-          f"{full[-1]:.4f}; peak memory {full_stats['peak_bytes']} bytes "
-          f"({full_stats['peak_bytes'] / 1e9:.2f} GB); launches "
-          f"{full_stats['launches']}", flush=True)
-    # Jamba's hybrid superblock (7 Mamba, 1 attention, 4 MoE): small
-    # leaves, so 4096-byte delta blocks bring them to the delta_mask kernel
-    jcounts = train_kill_and_resume(
-        torch, train, launches, "train jamba-1.5-large-398b-reduced f32",
-        TRAIN_ARGS + ["--delta-block", "4096"],
-        get_config("jamba-1.5-large-398b-reduced"),
+    for RWKV6 and MLA, and the two front-end archs. Returns the kernel
+    launches of the kill runs and the full-width runs without checkpoints,
+    summed."""
+    cfgs = train_configs(get_config, Stage)
+    kill_args = TRAIN_ARGS + ["--delta-block", "4096"]
+    # the reduced archs' small leaves reach the delta_mask kernel with
+    # 4096-byte delta blocks; gemma3-1b's with the default 64 KiB
+    total = [train_kill_and_resume(
+        torch, train, launches, roof, "train gemma3-1b 6 layers f32",
+        TRAIN_ARGS, cfgs["train gemma3-1b 6 layers f32"],
+        ("delta_mask", "flash_attention", "flash_attention_bwd"))]
+    total.append(train_steps(torch, train, launches, roof,
+                             "train gemma3-1b 26 layers f32", cfgs, 2,
+                             ("flash_attention", "flash_attention_bwd")))
+    label = "train jamba-1.5-large-398b-reduced f32"
+    total.append(train_kill_and_resume(
+        torch, train, launches, roof, label, kill_args, cfgs[label],
         ("delta_mask", "flash_attention", "flash_attention_bwd", "ssm_scan",
-         "ssm_scan_bwd"))
-    jamba = get_config("jamba-1.5-large-398b")
-    l0 = dataclasses.replace(jamba, stages=(
-        Stage(block=jamba.stages[0].block[:1], repeat=1),))
-    for k in launches:
-        launches[k] = 0
-    losses, stats = train.main(TRAIN_ARGS + [
-        "--steps", str(JAMBA_TRAIN_STEPS), "--ckpt-every", "0"], cfg=l0)
-    lcounts = dict(launches)
-    torch.cuda.empty_cache()
-    label = "train jamba-1.5-large L0 (Mamba + dense) f32"
-    if not all(map(math.isfinite, losses)) \
-            or len(losses) != JAMBA_TRAIN_STEPS:
-        raise AssertionError(f"{label}: losses {losses}")
-    if min(lcounts[k] for k in ("ssm_scan", "ssm_scan_bwd")) <= 0 \
-            or lcounts != stats["launches"]:
-        raise AssertionError(f"{label}: kernel launches {lcounts}")
-    print(f"{label}: batch 4, seq 1024, {JAMBA_TRAIN_STEPS} steps, no "
-          f"checkpoints; step {stats['step_ms']:.1f} ms; loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f} ({losses}); peak memory "
-          f"{stats['peak_bytes']} bytes ({stats['peak_bytes'] / 1e9:.2f} GB)"
-          f"; launches {lcounts}", flush=True)
-    total = [counts, jcounts, lcounts]
-    # RWKV6 and MLA: the reduced configs with a kill and a bit-exact resume
-    # (4096-byte delta blocks, so that their small leaves reach
-    # delta_mask), then 2 steps each at full width
-    total.append(train_kill_and_resume(
-        torch, train, launches, "train rwkv6-1.6b-reduced f32",
-        TRAIN_ARGS + ["--delta-block", "4096"],
-        get_config("rwkv6-1.6b-reduced"), ("delta_mask",)))
-    total.append(train_kill_and_resume(
-        torch, train, launches, "train minicpm3-4b-reduced f32",
-        TRAIN_ARGS + ["--delta-block", "4096"],
-        get_config("minicpm3-4b-reduced"),
-        ("delta_mask", "flash_attention", "flash_attention_bwd")))
-    minicpm = get_config("minicpm3-4b")
-    cut = dataclasses.replace(minicpm, stages=(
-        Stage(block=minicpm.stages[0].block, repeat=MINICPM_TRAIN_LAYERS),))
-    for label, cfg, needs in (
-            ("train rwkv6-1.6b 24 layers f32", get_config("rwkv6-1.6b"), ()),
-            (f"train minicpm3-4b {MINICPM_TRAIN_LAYERS} layers f32", cut,
-             ("flash_attention", "flash_attention_bwd"))):
-        t0 = time.time()
-        for k in launches:
-            launches[k] = 0
-        losses, stats = train.main(TRAIN_ARGS + [
-            "--steps", "2", "--ckpt-every", "0"], cfg=cfg)
-        total.append(dict(launches))
-        torch.cuda.empty_cache()
-        if not all(map(math.isfinite, losses)) or len(losses) != 2:
-            raise AssertionError(f"{label}: losses {losses}")
-        if any(total[-1][k] <= 0 for k in needs) \
-                or total[-1] != stats["launches"]:
-            raise AssertionError(f"{label}: kernel launches {total[-1]}")
-        print(f"{label}: batch 4, seq 1024, 2 steps, no checkpoints; step "
-              f"{stats['step_ms']:.1f} ms; loss {losses[0]:.4f} -> "
-              f"{losses[-1]:.4f}; peak memory {stats['peak_bytes']} bytes "
-              f"({stats['peak_bytes'] / 1e9:.2f} GB); launches {total[-1]}; "
-              f"phase {time.time() - t0:.1f} s", flush=True)
-    # the front ends: reduced qwen2-vl and musicgen with a kill and a
-    # bit-exact resume (each step's front-end embeddings from the
-    # pipeline), then 2 steps of each whole model, whose attention sees
-    # 256 + 1024 and 64 + 1024 rows
-    for arch in ("qwen2-vl-2b", "musicgen-large"):
+         "ssm_scan_bwd")))
+    total.append(train_steps(torch, train, launches, roof,
+                             "train jamba-1.5-large L0 (Mamba + dense) f32",
+                             cfgs, JAMBA_TRAIN_STEPS,
+                             ("ssm_scan", "ssm_scan_bwd")))
+    for label, needs in (
+            ("train rwkv6-1.6b-reduced f32", ("delta_mask",)),
+            ("train minicpm3-4b-reduced f32",
+             ("delta_mask", "flash_attention", "flash_attention_bwd"))):
         total.append(train_kill_and_resume(
-            torch, train, launches, f"train {arch}-reduced f32",
-            TRAIN_ARGS + ["--delta-block", "4096"],
-            get_config(f"{arch}-reduced"),
+            torch, train, launches, roof, label, kill_args, cfgs[label],
+            needs))
+    total.append(train_steps(torch, train, launches, roof,
+                             "train rwkv6-1.6b 24 layers f32", cfgs, 2, ()))
+    total.append(train_steps(
+        torch, train, launches, roof,
+        f"train minicpm3-4b {MINICPM_TRAIN_LAYERS} layers f32", cfgs, 2,
+        ("flash_attention", "flash_attention_bwd")))
+    # the front ends: each step's front-end embeddings from the pipeline;
+    # the whole models' attention sees 256 + 1024 and 64 + 1024 rows
+    for arch in ("qwen2-vl-2b", "musicgen-large"):
+        label = f"train {arch}-reduced f32"
+        total.append(train_kill_and_resume(
+            torch, train, launches, roof, label, kill_args, cfgs[label],
             ("delta_mask", "flash_attention", "flash_attention_bwd")))
     for arch in ("qwen2-vl-2b", "musicgen-large"):
-        total.append(train_steps(torch, train, launches, get_config(arch),
-                                 f"train {arch} whole f32"))
-    return {k: sum(c[k] for c in total) for k in counts}
+        total.append(train_steps(torch, train, launches, roof,
+                                 f"train {arch} whole f32", cfgs, 2,
+                                 ("flash_attention", "flash_attention_bwd")))
+    return {k: sum(c[k] for c in total) for k in launches}
 
 
-def train_steps(torch, train, launches, cfg, label) -> dict:
-    """2 steps of ``cfg`` without checkpoints; flash_attention and its
-    backward must launch. Returns the launches."""
+def train_steps(torch, train, launches, roof, label, cfgs, steps,
+                needs) -> dict:
+    """``steps`` steps of ``cfgs[label]`` without checkpoints; the kernels
+    in ``needs`` must launch. Returns the launches."""
     t0 = time.time()
+    cfg = cfgs[label]
     for k in launches:
         launches[k] = 0
-    losses, stats = train.main(TRAIN_ARGS + ["--steps", "2", "--ckpt-every",
-                                             "0"], cfg=cfg)
+    losses, stats = train.main(TRAIN_ARGS + ["--steps", str(steps),
+                                             "--ckpt-every", "0"], cfg=cfg)
     counts = dict(launches)
     torch.cuda.empty_cache()
-    if not all(map(math.isfinite, losses)) or len(losses) != 2:
+    if not all(map(math.isfinite, losses)) or len(losses) != steps:
         raise AssertionError(f"{label}: losses {losses}")
-    if min(counts[k] for k in ("flash_attention", "flash_attention_bwd")) \
-            <= 0 or counts != stats["launches"]:
+    if any(counts[k] <= 0 for k in needs) or counts != stats["launches"]:
         raise AssertionError(f"{label}: kernel launches {counts}")
-    print(f"{label}: batch 4, {cfg.n_frontend} front-end rows + seq 1024, 2 "
-          f"steps, no checkpoints; step {stats['step_ms']:.1f} ms; loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak memory "
-          f"{stats['peak_bytes']} bytes ({stats['peak_bytes'] / 1e9:.2f} GB)"
-          f"; launches {counts}; phase {time.time() - t0:.1f} s", flush=True)
+    rows = (f"{cfg.n_frontend} front-end rows + seq 1024" if cfg.n_frontend
+            else "seq 1024")
+    print(f"{label}: batch 4, {rows}, {steps} steps, no checkpoints; step "
+          f"{stats['step_ms']:.1f} ms; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} ({losses}); peak memory {stats['peak_bytes']} "
+          f"bytes ({stats['peak_bytes'] / 1e9:.2f} GB); launches {counts}; "
+          f"phase {time.time() - t0:.1f} s", flush=True)
+    roof.report(label, "train", stats["step_ms"] / 1e3)
     return counts
 
 
-def run_train_phase(torch) -> dict:
-    """``phase_train`` in a process of its own, which this one waits for:
-    its deterministic train step needs ``CUBLAS_WORKSPACE_CONFIG`` before
-    the process's first cuBLAS call, and here that setting would also slow
-    the serve phases' decode (``tools/serve_ab.py``). Echoes its lines and
-    returns its kernel launches."""
+def _example(name):
+    """The module of ``examples/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, launches) -> dict:
+    """The three example twins on the card, in this process: quickstart's
+    finite loss and its read after failover; the serve twin
+    (rwkv6-1.6b-reduced, a kill at token 24) against the same run without
+    the kill; the train twin (gemma3-1b-reduced, 14 steps, a kill after the
+    tenth, resumed at step 8) against the same steps without kill or
+    checkpoints, bit for bit. Returns the launches of the quickstart and
+    of the two runs with a kill, summed."""
+    t0 = time.time()
+    total = []
+
+    def launched(fn, *args):
+        for k in launches:
+            launches[k] = 0
+        out = fn(*args)
+        total.append(dict(launches))
+        return out
+
+    quick = _example("quickstart_torch")
+    loss, read = launched(quick.main, ["--device", "cuda"])
+    if not math.isfinite(loss) or read != b"assise" \
+            or total[-1]["flash_attention"] <= 0:
+        raise AssertionError(f"examples quickstart: loss {loss}, read "
+                             f"{read!r}, launches {total[-1]}")
+    serve_twin = _example("serve_failover_torch")
+    toks, stats = launched(serve_twin.main, [])
+    ref_toks, ref_stats = serve_twin.main(["--inject-failure", "0"])
+    if not ((toks == ref_toks).all() and stats["failover_s"] > 0
+            and stats["logits_crc"] == ref_stats["logits_crc"]):
+        raise AssertionError("examples serve twin: the resumed session "
+                             "differs from the uninterrupted run")
+    train_twin = _example("train_failover_torch")
+    losses, tstats = launched(train_twin.main, [])
+    ref, ref_tstats = train_twin.main(["--inject-failure", "0",
+                                       "--ckpt-every", "0"])
+    if not (len(losses) == 16 and losses[:10] == ref[:10]
+            and losses[10:] == ref[8:]
+            and tstats["params_crc"] == ref_tstats["params_crc"]
+            and total[-1]["flash_attention_bwd"] > 0):
+        raise AssertionError(f"examples train twin: {losses} vs {ref}, "
+                             f"launches {total[-1]}")
+    counts = {k: sum(c[k] for c in total) for k in launches}
+    print(f"examples: quickstart_torch loss {loss:.4f}, read after failover "
+          f"{read!r}; serve_failover_torch rwkv6-1.6b-reduced 4x48 tokens "
+          f"equal to an uninterrupted run (failover "
+          f"{stats['failover_s']:.4f} s); train_failover_torch "
+          f"gemma3-1b-reduced {len(losses)} steps run, losses from step 8 "
+          f"and final params CRC equal to an uninterrupted run (loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}); launches {counts}; phase "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return counts
+
+
+def run_train_phase(torch, terms: dict) -> dict:
+    """``phase_examples`` and ``phase_train`` in a process of its own, which
+    this one waits for: the deterministic train step needs
+    ``CUBLAS_WORKSPACE_CONFIG`` before the process's first cuBLAS call, and
+    here that setting would also slow the serve phases' decode
+    (``tools/serve_ab.py``). Hands it the counted roofline terms on its
+    standard input, echoes its lines and returns its last line: the
+    launches of both phases and its roofline entries."""
     torch.cuda.empty_cache()
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     proc = subprocess.run([sys.executable, __file__, "--train-phase"],
-                          env=env, stdout=subprocess.PIPE, text=True,
-                          timeout=1000)
+                          env=env, input=json.dumps(terms),
+                          stdout=subprocess.PIPE, text=True, timeout=1000)
     lines = proc.stdout.strip().splitlines()
     if proc.returncode != 0:
         print("\n".join(lines), flush=True)
@@ -943,6 +1106,10 @@ def run_train_phase(torch) -> dict:
 
 
 def main(argv) -> int:
+    if argv == ["--count-rooflines"]:  # main's counting process: no card
+        sys.path.insert(0, str(PORT.parent))
+        print(json.dumps(count_rooflines()))
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -956,71 +1123,70 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch import roofline as rl
     from repro_torch.ckpt.delta import changed_blocks
     from repro_torch.configs import get_config
     from repro_torch.configs.base import Stage
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import delta_encode as delta
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.launch import serve, train
-    from repro_torch.models.transformer import Model, RunConfig
+    from repro_torch.models import Model, RunConfig
     from repro_torch.weights import tree_leaves, tree_to_torch
 
     if argv == ["--train-phase"]:  # run_train_phase's process
-        print(json.dumps(phase_train(torch, train, ops.LAUNCHES, get_config,
-                                     Stage)))
+        roof = Rooflines(json.load(sys.stdin))
+        examples = phase_examples(torch, ops.LAUNCHES)
+        launches = phase_train(torch, train, ops.LAUNCHES, roof, get_config,
+                               Stage)
+        print(json.dumps({"launches": launches, "examples": examples,
+                          "roofline": roof.entries}))
         return 0
     t0 = time.time()
     phase_device(torch)
-    phase_build(_build)
-    kernels = {"delta_mask": phase_delta(torch, ops, ref, changed_blocks),
-               "flash_attention": phase_flash(torch, ops, ref),
-               "ssm_scan": phase_ssm(torch, ops, ref, ssm),
-               "flash_attention_bwd": phase_flash_bwd(torch, ops, ref,
-                                                      flash),
-               "ssm_scan_bwd": phase_ssm_bwd(torch, ref, ssm)}
-    for arch in ("gemma3-1b-reduced", "jamba-1.5-large-398b-reduced",
-                 "rwkv6-1.6b-reduced", "minicpm3-4b-reduced",
-                 "qwen2-vl-2b-reduced", "musicgen-large-reduced"):
-        phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
-                        arch)
-        phase_train_reference(torch, Model, RunConfig, get_config,
-                              tree_to_torch, tree_leaves, arch)
-    counts = phase_serve(torch, serve, ops.LAUNCHES, "serve gemma3-1b f32",
-                         SERVE_ARGS, ("delta_mask", "flash_attention"),
-                         get_config("gemma3-1b"))
-    jamba = get_config("jamba-1.5-large-398b")
-    cut = dataclasses.replace(jamba, stages=(
-        Stage(block=jamba.stages[0].block[:JAMBA_LAYERS], repeat=1),))
-    jcounts = phase_serve(torch, serve, ops.LAUNCHES,
-                          f"serve jamba-1.5-large {JAMBA_LAYERS} layers bf16",
-                          JAMBA_ARGS, ("delta_mask", "flash_attention",
-                                       "ssm_scan"), cut)
-    rcounts = phase_serve(torch, serve, ops.LAUNCHES, "serve rwkv6-1.6b f32",
-                          RWKV_ARGS, ("delta_mask",),
-                          get_config("rwkv6-1.6b"))
-    mcounts = phase_serve(torch, serve, ops.LAUNCHES,
-                          "serve minicpm3-4b f32", MINICPM_ARGS,
-                          ("delta_mask", "flash_attention"),
-                          get_config("minicpm3-4b"))
-    qcounts = phase_serve(torch, serve, ops.LAUNCHES, "serve qwen2-vl-2b f32",
-                          QWEN_VL_ARGS, ("delta_mask", "flash_attention"),
-                          get_config("qwen2-vl-2b"))
-    musicgen = get_config("musicgen-large")
-    cut = dataclasses.replace(musicgen, stages=(
-        Stage(block=musicgen.stages[0].block,
-              repeat=MUSICGEN_SERVE_LAYERS),))
-    gcounts = phase_serve(torch, serve, ops.LAUNCHES,
-                          f"serve musicgen-large {MUSICGEN_SERVE_LAYERS} "
-                          "layers f32", MUSICGEN_ARGS,
-                          ("delta_mask", "flash_attention"), cut)
-    wcounts = serve_once(torch, serve, ops.LAUNCHES,
-                         "serve musicgen-large 48 layers f32", MUSICGEN_ARGS,
-                         ("flash_attention",), musicgen)
-    tcounts = run_train_phase(torch)
-    runs = (counts, jcounts, rcounts, mcounts, qcounts, gcounts, wcounts,
-            tcounts)
-    counts = {k: sum(c[k] for c in runs) for k in counts}
+    # the meta-device counts take a minute or two of one host core: they
+    # run beside the build and the kernel phases, on no card
+    counter = subprocess.Popen(
+        [sys.executable, __file__, "--count-rooflines"], text=True,
+        stdout=subprocess.PIPE, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    try:
+        phase_build(_build)
+        kernels = {
+            "delta_mask": phase_delta(torch, ops, ref, changed_blocks, rl,
+                                      delta),
+            "flash_attention": phase_flash(torch, ops, ref, rl, flash),
+            "ssm_scan": phase_ssm(torch, ops, ref, rl, ssm),
+            "flash_attention_bwd": phase_flash_bwd(torch, ref, rl, flash),
+            "ssm_scan_bwd": phase_ssm_bwd(torch, ref, rl, ssm)}
+        for arch in ("gemma3-1b-reduced", "jamba-1.5-large-398b-reduced",
+                     "rwkv6-1.6b-reduced", "minicpm3-4b-reduced",
+                     "qwen2-vl-2b-reduced", "musicgen-large-reduced"):
+            phase_reference(torch, Model, RunConfig, get_config,
+                            tree_to_torch, arch)
+            phase_train_reference(torch, Model, RunConfig, get_config,
+                                  tree_to_torch, tree_leaves, arch)
+        out, _ = counter.communicate(timeout=900)
+        if counter.returncode != 0:
+            raise RuntimeError(f"roofline counts: exit code "
+                               f"{counter.returncode}")
+    finally:
+        if counter.poll() is None:
+            counter.kill()
+            counter.wait()
+    terms = json.loads(out)
+    print(f"roofline: counted {len(terms)} steps on the meta device in the "
+          f"background", flush=True)
+    roof = Rooflines(terms)
+    runs = []
+    for label, args, needs, cfg, once in serve_runs(get_config, Stage):
+        run = serve_once if once else phase_serve
+        runs.append(run(torch, serve, ops.LAUNCHES, roof, label, args, needs,
+                        cfg))
+    child = run_train_phase(torch, terms)
+    runs += [child["launches"], child["examples"]]
+    roof.entries += child["roofline"]
+    counts = {k: sum(c[k] for c in runs) for k in ops.LAUNCHES}
     where = {"delta_mask": ("src/repro_torch/kernels/csrc/delta_mask.cu",
                             "src/repro/kernels/delta_encode.py:37"),
              "flash_attention": (
@@ -1045,6 +1211,7 @@ def main(argv) -> int:
          "replaces": where[name][1], "launches": counts[name], **res}
         for name, res in kernels.items()]}
     print(f"total: {time.time() - t0:.1f} s", flush=True)
+    print(json.dumps({"roofline": roof.entries}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

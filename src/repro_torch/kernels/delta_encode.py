@@ -32,6 +32,13 @@ def check_args(new: torch.Tensor, old: torch.Tensor, block: int,
                          f"{old.device}")
 
 
+def work(n: int, block: int) -> tuple:
+    """(flops, bytes) of the scan of two ``n``-byte arrays in ``block``-byte
+    blocks: each input read once and one flag a block written; byte
+    compares only, no floating-point operations."""
+    return 0, 2 * n + n // block
+
+
 def delta_mask_cuda(new: torch.Tensor, old: torch.Tensor,
                     block: int) -> torch.Tensor:
     """Launch the kernel on ``new.device``; returns the int8 mask."""

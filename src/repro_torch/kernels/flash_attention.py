@@ -46,6 +46,50 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{v.device}")
 
 
+def pairs(s: int, window, causal: bool = True) -> int:
+    """The (query, key) pairs the mask keeps: the causal band, or within
+    ``window`` of the query (both sides when not causal)."""
+    w = min(window or s, s)
+    if causal:  # sum(min(i + 1, w) for i in range(s))
+        return s * w - w * (w - 1) // 2
+    # (i, j) with i - j < w: every j >= i, and w - 1 below each i
+    return s * (s + 1) // 2 + (s * (w - 1) - w * (w - 1) // 2)
+
+
+def work(b, h, hk, s, d, dv, window, itemsize, causal=True) -> tuple:
+    """(flops, bytes) of the forward: its two products (Q K^T, P V) over the
+    unmasked pairs; q, k, v read once, o written once."""
+    flops = b * h * pairs(s, window, causal) * 2 * (d + dv)
+    nbytes = itemsize * (b * h * s * d + b * hk * s * (d + dv)
+                         + b * h * s * dv)
+    return flops, nbytes
+
+
+def bwd_work(b, h, hk, s, d, dv, window, itemsize=4, causal=True) -> tuple:
+    """(flops, bytes) of the backward: five products (Q K^T, dO V^T, P^T dO,
+    dS K, dS^T Q) over the unmasked pairs; q, k, v, o, dO read once, dq,
+    dk, dv written once."""
+    flops = b * h * pairs(s, window, causal) * 2 * (3 * d + 2 * dv)
+    nbytes = itemsize * (2 * b * h * s * d + 2 * b * hk * s * (d + dv)
+                         + 2 * b * h * s * dv)
+    return flops, nbytes
+
+
+def head_tile(d: int, dv: int) -> int:
+    """The head width both kernels compute at: max(D, Dv) rounded up to 64,
+    128 or 256, the zero-filled columns included."""
+    return next(t for t in (64, 128, 256) if max(d, dv) <= t)
+
+
+def padded_flops(flops: float, d: int, dv: int, backward: bool = False):
+    """``flops`` of ``work`` (or ``bwd_work``) at the kernel's head tile:
+    every product runs ``head_tile`` columns wide."""
+    tile = head_tile(d, dv)
+    if backward:
+        return flops * 5 * tile / (3 * d + 2 * dv)
+    return flops * 2 * tile / (d + dv)
+
+
 def check_mma_layout(tensors: dict) -> None:
     """The kernels copy 16-byte rows (``cp.async``): each (B, H, S, D)
     tensor needs a 16-byte aligned data pointer, batch, head and sequence

@@ -7,8 +7,18 @@ counts the kernel launches per kernel. ``flash_attention`` and
 ``ssm_scan`` are differentiable: where a gradient is wanted, each backward
 runs its plain version (``flash_attention_bwd_ref``, ``ssm_scan_bwd_ref``)
 on the CPU and its backward kernel on the card.
+
+A ``meta`` tensor (``repro_torch.roofline`` counts a step on the meta
+device) runs neither: each op returns empty meta outputs of the card's
+shapes, dtypes and layouts, and adds its kernel's analytic ``(flops,
+bytes)`` to every recorder that ``record_work`` holds open. The plain
+versions would count the wrong work (the plain flash computes every one
+of the S x S scores, not the causal or window band), and a meta call is
+no launch, so ``LAUNCHES`` does not move.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -20,17 +30,59 @@ from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels._build import LAUNCHES
 
 __all__ = ["LAUNCHES", "delta_mask", "delta_pack", "flash_attention",
-           "ssm_scan"]
+           "record_work", "ssm_scan"]
+
+_RECORDERS: list = []  # the lists that record_work holds open
+
+
+@contextlib.contextmanager
+def record_work():
+    """Yields a list to which every kernel op on a ``meta`` tensor appends
+    ``(kernel name, flops, bytes)`` while the block runs."""
+    rows: list = []
+    _RECORDERS.append(rows)
+    try:
+        yield rows
+    finally:
+        _RECORDERS.remove(rows)
+
+
+def _meta_work(name: str, work) -> None:
+    for rows in _RECORDERS:
+        rows.append((name, *work))
 
 
 def _route(t: torch.Tensor, name: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: no implementation for device {t.device}")
     return t.device.type
 
 
+def _bshd(shape, dtype) -> torch.Tensor:
+    """An empty meta (B, H, S, D) tensor laid out as (B, S, H, D), as the
+    flash kernels write their outputs and gradients."""
+    b, h, s, d = shape
+    return torch.empty((b, s, h, d), dtype=dtype,
+                       device="meta").transpose(1, 2)
+
+
+def _flash_meta(q, k, v, causal, window, backward=False):
+    b, h, s, d = q.shape
+    hk, dv = k.shape[1], v.shape[-1]
+    if backward:
+        _meta_work("flash_attention_bwd", _flash.bwd_work(
+            b, h, hk, s, d, dv, window, q.element_size(), causal))
+        return tuple(_bshd(t.shape, t.dtype) for t in (q, k, v))
+    _meta_work("flash_attention", _flash.work(
+        b, h, hk, s, d, dv, window, q.element_size(), causal))
+    return _bshd((b, h, s, dv), q.dtype)
+
+
 def _flash_forward(q, k, v, causal, window, scale):
-    if _route(q, "flash_attention") == "cpu":
+    route = _route(q, "flash_attention")
+    if route == "meta":
+        return _flash_meta(q, k, v, causal, window)
+    if route == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
     return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window,
@@ -59,7 +111,12 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if _route(q, "flash_attention") == "cpu":
+        route = _route(q, "flash_attention")
+        if route == "meta":
+            return (*_flash_meta(q, k, v, ctx.args["causal"],
+                                 ctx.args["window"], backward=True),
+                    None, None, None)
+        if route == "cpu":
             grads = ref.flash_attention_bwd_ref(q, k, v, out, dout,
                                                 **ctx.args)
         else:
@@ -95,8 +152,10 @@ class _SSMScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, decay, u, c, state0):
         ctx.set_materialize_grads(False)  # the final state's may be None
-        if _route(decay, "ssm_scan") == "cpu":
-            y, final = ref.ssm_scan_ref(decay, u, c, state0)
+        route = _route(decay, "ssm_scan")
+        if route != "cuda":
+            y, final = (_ssm_meta(decay) if route == "meta"
+                        else ref.ssm_scan_ref(decay, u, c, state0))
             ctx.save_for_backward(decay, u, c, state0)
         else:
             y, final, bounds = _ssm.ssm_scan_cuda(decay, u, c, state0,
@@ -110,12 +169,23 @@ class _SSMScan(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros(decay.shape[:3], dtype=torch.float32,
                              device=decay.device)
-        if _route(decay, "ssm_scan") == "cpu":
+        route = _route(decay, "ssm_scan")
+        if route == "meta":  # start is state0 there, as on the CPU
+            _meta_work("ssm_scan_bwd", _ssm.bwd_work(*decay.shape))
+            return tuple(map(torch.empty_like, ctx.saved_tensors))
+        if route == "cpu":
             return ref.ssm_scan_bwd_ref(decay, u, c, start, dy, dfinal)
         if dfinal is not None:
             dfinal = dfinal.contiguous()
         return _ssm.ssm_scan_bwd_cuda(decay, u, c, start, dy.contiguous(),
                                       dfinal)
+
+
+def _ssm_meta(decay):
+    b, s, d, n = decay.shape
+    _meta_work("ssm_scan", _ssm.work(b, s, d, n))
+    return (torch.empty((b, s, d), device="meta"),
+            torch.empty((b, d, n), device="meta"))
 
 
 def ssm_scan(decay, u, c, state0):
@@ -128,7 +198,10 @@ def ssm_scan(decay, u, c, state0):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (decay, u, c, state0)):
         return _SSMScan.apply(decay, u, c, state0)
-    if _route(decay, "ssm_scan") == "cpu":
+    route = _route(decay, "ssm_scan")
+    if route == "meta":
+        return _ssm_meta(decay)
+    if route == "cpu":
         return ref.ssm_scan_ref(decay, u, c, state0)
     return _ssm.ssm_scan_cuda(decay, u, c, state0)
 
@@ -138,7 +211,12 @@ def delta_mask(new, old, *, block: int = 2048, bpt: int = 8):
     ``block * bpt``. Returns the int8 mask of length n_blocks
     (1 = block changed)."""
     _delta.check_args(new, old, block, bpt)
-    if _route(new, "delta_mask") == "cpu":
+    route = _route(new, "delta_mask")
+    if route == "meta":
+        _meta_work("delta_mask", _delta.work(new.shape[0], block))
+        return torch.empty(new.shape[0] // block, dtype=torch.int8,
+                           device="meta")
+    if route == "cpu":
         return ref.delta_mask_ref(new, old, block)
     return _delta.delta_mask_cuda(new, old, block)
 

@@ -41,6 +41,23 @@ def check_args(decay: torch.Tensor, u: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"ssm_scan: inputs on {sorted(map(str, devices))}")
 
 
+def work(b: int, s: int, d: int, n: int) -> tuple:
+    """(flops, bytes) of the forward: an FMA for the state and one for the
+    output sum at each (b, s, d, n); decay and u read once, c and state0
+    once, y and the final state written once."""
+    return 4 * b * s * d * n, 4 * (2 * b * s * d * n + b * s * n
+                                   + 2 * b * d * n + b * s * d)
+
+
+def bwd_work(b: int, s: int, d: int, n: int) -> tuple:
+    """(flops, bytes) of the backward: at each (b, s, d, n) the state's
+    recompute, the carried gradient and the d_c sum (three FMAs) and
+    d_decay (a product); decay, u, dy, c and state0 read once, d_decay,
+    d_u, d_c and d_state0 written once."""
+    return 8 * b * s * d * n, 4 * (4 * b * s * d * n + b * s * d
+                                   + 2 * b * s * n + 2 * b * d * n)
+
+
 def _check_card_args(name: str, ins, n: int, b: int, d: int) -> None:
     if any(t.dtype != torch.float32 for t in ins):
         raise ValueError(f"{name} on the card takes float32 inputs, got "

@@ -47,6 +47,12 @@ from repro_torch.models.transformer import Model, RunConfig
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def run_config(dtype) -> RunConfig:
+    """What serving runs: weights and caches in ``dtype``, 16-token wkv
+    chunks."""
+    return RunConfig(param_dtype=dtype, cache_dtype=dtype, rwkv_chunk=16)
+
+
 def main(argv=None, cfg=None):
     """Returns (tokens (batch, gen) numpy, stats dict). ``cfg`` (an
     ``ArchConfig``) overrides ``--arch``, for a config that has no name,
@@ -71,7 +77,7 @@ def main(argv=None, cfg=None):
 
     cfg = cfg or get_config(args.arch)
     dtype = DTYPES[args.dtype]
-    rc = RunConfig(param_dtype=dtype, cache_dtype=dtype, rwkv_chunk=16)
+    rc = run_config(dtype)
     model = Model(cfg, rc, device=args.device)
     dev = model.device
     if dev.type == "cuda":

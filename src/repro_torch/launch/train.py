@@ -42,6 +42,11 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.weights import tree_leaves, tree_unflatten
 
 
+# what training runs: f32 weights, 64-token loss chunks, 16-token wkv chunks
+RUN_CONFIG = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
+                       loss_chunk=64, rwkv_chunk=16)
+
+
 def make_train_step(cfg, rc, opt_cfg):
     """Returns step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics): the loss and every parameter's gradient by autograd, then
@@ -122,8 +127,7 @@ def main(argv=None, cfg=None):
     args = ap.parse_args(argv)
 
     cfg = cfg or get_config(args.arch)
-    rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
-                   loss_chunk=64, rwkv_chunk=16)
+    rc = RUN_CONFIG
     dev = device_mod.resolve(args.device)
     model = Model(cfg, rc, device=dev)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=5)

@@ -41,6 +41,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
                                        init_norm, normal_init,
                                        sinusoidal_pos_emb, softcap)
+from repro_torch.weights import tree_leaves
 
 VOCAB_PAD = 256  # pad vocab to a multiple of this (TP divisibility)
 
@@ -426,3 +427,23 @@ class Model:
 
     def decode_step(self, params, tokens, pos: int, caches):
         return decode_step(self.cfg, params, tokens, pos, caches, self.rc)
+
+
+def count_params(cfg: ArchConfig, rc: RunConfig = RunConfig()) -> int:
+    """Elements of every parameter leaf, counted on the ``meta`` device
+    (nothing is allocated)."""
+    params = init_params(cfg, torch.Generator(), rc, device="meta")
+    return sum(math.prod(leaf.shape) for leaf in tree_leaves(params))
+
+
+def count_active_params(cfg: ArchConfig) -> int:
+    """Params touched per token: total minus inactive routed experts."""
+    total = count_params(cfg)
+    inactive = 0
+    for spec in cfg.layer_specs():
+        if spec.mlp.kind == "moe":
+            m = spec.mlp.moe
+            gated = 3  # swiglu/geglu experts have 3 matrices
+            per_expert = gated * cfg.d_model * m.d_expert
+            inactive += (m.n_experts - m.top_k) * per_expert
+    return total - inactive

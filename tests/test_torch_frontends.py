@@ -8,7 +8,6 @@ the CPU. The whole-model parity of both front-end archs (prefill, decode,
 loss, gradients) runs in the parametrised tests of ``test_torch_models.py``
 and ``test_torch_train.py``, their serve failover in ``test_torch_serve.py``.
 """
-import math
 
 import jax
 import jax.numpy as jnp
@@ -170,16 +169,16 @@ def test_serve_driver_decodes_after_the_frontend(monkeypatch, tmp_path):
 def test_param_counts_match_published(arch, count):
     """Twin of ``test_archs_smoke.py::test_param_counts_match_published``
     for the port's init on the meta device: every parameter and cache leaf
-    has the JAX package's name, shape and dtype, and the count equals the
-    JAX package's ``count_params`` (within 5 % of the published 2B and
-    3.3B with its text encoder)."""
+    has the JAX package's name, shape and dtype, and ``count_params``
+    equals the JAX package's (within 5 % of the published 2B and 3.3B with
+    its text encoder)."""
     jcfg, pcfg = jax_get_config(arch), port_get_config(arch)
     jshapes = jax.eval_shape(lambda k: jtf.init_params(jcfg, k),
                              jax.random.key(0))
     pshapes = _meta_shapes(ptf.init_params(pcfg, torch.Generator(),
                                            device="meta"))
     assert pshapes == _meta_shapes(jshapes)
-    assert sum(math.prod(shape) for shape, _ in pshapes.values()) == count
+    assert ptf.count_params(pcfg) == jtf.count_params(jcfg) == count
     jcache = jax.eval_shape(lambda: jtf.init_cache(jcfg, 4, 64))
     pcache = ptf.init_cache(pcfg, 4, 64, device="meta")
     assert _meta_shapes(pcache) == _meta_shapes(jcache)

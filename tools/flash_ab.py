@@ -16,7 +16,9 @@ H=4, Hk=1, S=1024, D=256, window 512 and none, and S=1000 with window
 ``torch.profiler`` (device time summed over 10 calls, divided by 10).
 Kernel, plain and SDPA ms are CUDA-event medians. Prints one JSON line a
 run: the cases, the backward's per-kernel ms at S=1024 for each window,
-and the ``ptxas`` registers and spills of the backward's kernels.
+and the ``ptxas`` registers and spills of the backward's kernels. The
+phases take their bounds from the checkout's ``repro_torch.roofline`` rates
+and its kernel module's ``work`` functions, so a checkout must have both.
 """
 from __future__ import annotations
 
@@ -67,18 +69,20 @@ def run_one(checkout: Path) -> dict:
     import torch
 
     import chip_smoke
+    from repro_torch import roofline as rl
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as flash
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build(["flash_attention", "flash_attention_bwd"])
-    out = {"forward": chip_smoke.phase_flash(torch, ops, ref)["cases"]}
+    out = {"forward": chip_smoke.phase_flash(torch, ops, ref, rl,
+                                             flash)["cases"]}
     if "lse" not in inspect.signature(
             flash.flash_attention_bwd_cuda).parameters:
         return out
     log = _build.library_path("flash_attention_bwd").with_suffix(".log")
-    out["backward"] = chip_smoke.phase_flash_bwd(torch, ops, ref,
+    out["backward"] = chip_smoke.phase_flash_bwd(torch, ref, rl,
                                                  flash)["cases"]
     out["kernel_ms"] = {str(w): kernel_ms(torch, flash, w)
                         for w in (512, None)}
