@@ -51,6 +51,26 @@ Phases, one printed line each; any failure raises and exits non-zero:
              counts one step of every serve and train phase below on the
              meta device (repro_torch.roofline: counted FLOPs and bytes,
              the five kernels' analytic work, the compulsory bytes)
+  dryrun     beside them too, a process on no card runs five production
+             cells of repro_torch.launch.dryrun on a fake group of 512
+             ranks (DTensors of meta shards): gemma3-1b train_4k pod1
+             (dp_zero1, ZeRO-1), qwen1.5-32b prefill_32k pod1 (tp_fsdp,
+             head_pad 16), stablelm-12b decode_32k pod2 (the 512-rank
+             mesh), deepseek-moe-16b decode_32k pod1 (experts over model)
+             and rwkv6-1.6b long_500k pod1 (batch 1, seq-sharded state);
+             a line each: one chip's argument GB, counted TFLOP and GB,
+             collective counts and wire GB, roofline terms at H100
+             constants; each must count a collective unless its policy
+             needs none, which the line then says
+  mesh       gemma3-1b at full width, f32, over make_debug_mesh(1, 1) (a
+             one-rank NCCL group), laid out by the sharding rules with
+             run_config_for's hook: prefill 4 x 1024 and 8 greedy steps,
+             tokens and every step's logits bit-equal to the plain run,
+             flash_attention launched through ops' DTensor branch; the same
+             prefill at head_pad=8 (8 query heads on 1 kv head) within
+             1e-4; ms and peak GB. In the train process (below), one step
+             of gemma3-1b's 6-layer cut over the mesh (ZeRO-1 moments):
+             loss and parameters' CRC bit-equal to the plain step
   serve      full-width gemma3-1b (f32) through repro_torch.launch.serve:
              batch 4, prompt 1024, 32 tokens, a delta snapshot every 8, a
              node kill and failover at 20; tokens and final logits equal to
@@ -118,12 +138,14 @@ the phase's three serve runs, the decode step without snapshots, or the
 mean train step of the run without checkpoints; R is repro_torch.roofline's
 (the model FLOPs, 6 or 2 x active parameters x rows, at the peak, over T);
 S is model over counted FLOPs. Then one JSON line {"roofline": [...]}, an
-entry for each of those steps; one JSON line with every kernel's numbers
+entry for each of those steps; one JSON line {"dryrun": [...]}, the five
+cells' counted terms; one JSON line with every kernel's numbers
 (launches summed over the main-path runs: the six serve runs with a node
 kill and the whole musicgen-large serve, the quickstart and the two example
 runs with a kill, the six train runs with a node kill, and the Jamba L0,
 gemma3-1b 26-layer, rwkv6-1.6b, minicpm3 8-layer, qwen2-vl-2b and
-musicgen-large train runs; flash_attention's entry is gemma3-1b's f32 case,
+musicgen-large train runs, and the mesh phase's runs (serve and head_pad,
+and the mesh train step); flash_attention's entry is gemma3-1b's f32 case,
 flash_attention_bwd's its window-512 train case, each with every case
 under "cases"; each bound from the work function in the kernel's module),
 and the last line {"ok": true, "device": {...}}. Kernel times are CUDA-event
@@ -169,6 +191,23 @@ MUSICGEN_ARGS = ["--arch", "musicgen-large"] + SERVE_ARGS[2:]
 # minutes to snapshot four times through the cluster; the whole model
 # serves once without snapshots
 MUSICGEN_SERVE_LAYERS = 12
+MESH_DECODE = 8  # greedy decode steps of the mesh phase
+HEAD_PAD = 8  # gemma3-1b's 4 query heads padded to 8 on its 1 kv head
+# head_pad=8 prefill against the unpadded one: the same real heads, but
+# the q and wo products run 2x wider (zero columns and rows), so cuBLAS may
+# pick other tiles; the card-vs-CPU reference phase's tolerance
+HEAD_PAD_TOL = 1e-4
+# the production cells the dry-run phase counts, with the policy each
+# exercises (repro_torch.launch.dryrun on a fake group of 512 ranks)
+DRYRUN_CELLS = [
+    ("gemma3-1b", "train_4k", "pod1", "dp_zero1: batch over data x model, "
+     "ZeRO-1 moments, the flash backward's meta work"),
+    ("qwen1.5-32b", "prefill_32k", "pod1", "tp_fsdp, head_pad=16, head-TP "
+     "caches"),
+    ("stablelm-12b", "decode_32k", "pod2", "tp_fsdp on the 512-rank mesh"),
+    ("deepseek-moe-16b", "decode_32k", "pod1", "EP, experts over model"),
+    ("rwkv6-1.6b", "long_500k", "pod1", "batch 1, so seq-sharded recurrent "
+     "state")]
 
 
 def time_ms(torch, fn) -> float:
@@ -187,11 +226,16 @@ def time_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
-def phase_device(torch) -> None:
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device(torch) -> None:
+    print(card())
     print(f"device: {torch.cuda.get_device_name(0)}; "
           f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -1084,6 +1128,257 @@ def phase_examples(torch, launches) -> dict:
     return counts
 
 
+def _greedy(torch, tf, cfg, rc, params, caches, prompts, n_dec):
+    """Prefill ``prompts`` and decode ``n_dec`` greedy tokens. Returns
+    (the tokens (B, n_dec), every step's logits), as plain tensors; on a
+    mesh the tokens fed back are laid out as the prompts."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+    logits, caches = tf.prefill(cfg, params, prompts, caches, rc)
+    steps, toks = [full(logits)], []
+    for i in range(n_dec):
+        tok = steps[-1].argmax(-1)[:, None]
+        toks.append(tok)
+        if isinstance(prompts, DTensor):
+            tok = distribute_tensor(tok, prompts.device_mesh,
+                                    prompts.placements)
+        logits, caches = tf.decode_step(cfg, params, tok,
+                                        prompts.shape[1] + i, caches, rc)
+        steps.append(full(logits))
+    return torch.cat(toks, 1), steps
+
+
+def phase_mesh(torch, ops, get_config) -> dict:
+    """gemma3-1b at full width, f32, over ``make_debug_mesh(1, 1)`` (a
+    one-rank NCCL group), laid out by the sharding rules
+    (``distribute_state``) with ``run_config_for``'s hook, under
+    ``implicit_replication``: (a) prefill 4 x 1024 and 8 greedy steps, the
+    tokens and every step's logits bit-equal to the plain run's, flash
+    launched through ``ops``' DTensor branch; (b) the same prefill at
+    head_pad=8 within HEAD_PAD_TOL of the plain logits. Returns the
+    launches of (a) and (b)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding
+    from repro_torch.models import transformer as tf
+    t0 = time.time()
+    cfg = get_config("gemma3-1b")
+    rc = tf.RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
+                      rwkv_chunk=16)  # launch/serve.py's f32
+    b, s, dev = 4, 1024, torch.device("cuda")
+
+    def fresh(head_pad=1):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return tf.init_params(cfg, gen, dataclasses.replace(
+            rc, head_pad=head_pad), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    plain_tok, plain_logits = _greedy(
+        torch, tf, cfg, rc, fresh(),
+        tf.init_cache(cfg, b, s + MESH_DECODE, rc, dev), prompts,
+        MESH_DECODE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh = mesh_mod.make_debug_mesh(1, 1)
+    try:
+        shape = ShapeSpec("mesh", "prefill", s, b)
+        policy = sharding.choose_policy(cfg, shape)
+        mrc = sharding.run_config_for(cfg, shape, mesh, base=rc,
+                                      policy=policy)
+        st = sharding.distribute_state(
+            cfg, mesh, policy, b, params=fresh(),
+            caches=tf.init_cache(cfg, b, s + MESH_DECODE, rc, dev),
+            inputs={"tokens": prompts})
+        for counts in (ops.LAUNCHES, ops.SHARDED):
+            for k in counts:
+                counts[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        with implicit_replication():
+            tok, logits = _greedy(torch, tf, cfg, mrc, st["params"],
+                                  st["caches"], st["inputs"]["tokens"],
+                                  MESH_DECODE)
+        torch.cuda.synchronize()
+        mesh_s = time.time() - t1
+        peak = torch.cuda.max_memory_allocated()
+        if not (torch.equal(tok, plain_tok) and all(
+                torch.equal(x, y) for x, y in zip(logits, plain_logits))):
+            worst = max((x - y).abs().max().item()
+                        for x, y in zip(logits, plain_logits))
+            raise AssertionError(f"mesh: tokens or logits differ from the "
+                                 f"plain run (max {worst})")
+        del st, logits
+        torch.cuda.empty_cache()
+        prc = dataclasses.replace(mrc, head_pad=HEAD_PAD)
+        st = sharding.distribute_state(
+            cfg, mesh, policy, b, params=fresh(HEAD_PAD),
+            caches=tf.init_cache(cfg, b, s, prc, dev),
+            inputs={"tokens": prompts})
+        with implicit_replication():
+            padded, _ = tf.prefill(cfg, st["params"], st["inputs"]["tokens"],
+                                   st["caches"], prc)
+        padded = padded.full_tensor()
+        err = (padded - plain_logits[0]).abs().max().item()
+        counts, sharded = dict(ops.LAUNCHES), dict(ops.SHARDED)
+        del st
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if not torch.allclose(padded, plain_logits[0], atol=HEAD_PAD_TOL,
+                          rtol=HEAD_PAD_TOL):
+        raise AssertionError(f"mesh head_pad={HEAD_PAD}: logits differ by "
+                             f"{err}")
+    if counts["flash_attention"] <= 0 \
+            or sharded["flash_attention"] != counts["flash_attention"]:
+        raise AssertionError(f"mesh: launches {counts}, DTensor calls "
+                             f"{sharded}")
+    print(f"mesh [{card()}]: gemma3-1b f32 over a 1x1 mesh "
+          f"({policy.mode}), batch {b}, prompt {s}, {MESH_DECODE} greedy "
+          f"steps: tokens and every step's logits bit-equal to the plain "
+          f"run ({mesh_s * 1e3:.1f} ms, peak {peak / 1e9:.2f} GB); "
+          f"head_pad={HEAD_PAD} prefill max abs logit diff {err:.3e} (tol {HEAD_PAD_TOL:g}); flash through "
+          f"ops' DTensor branch {sharded['flash_attention']} times; "
+          f"launches {counts}; phase {time.time() - t0:.1f} s", flush=True)
+    return counts
+
+
+def phase_mesh_train(torch, ops, train, get_config, Stage) -> dict:
+    """One train step of gemma3-1b's first superblock (6 layers, full
+    width, f32) over ``make_debug_mesh(1, 1)``, laid out by the rules
+    (parameters, ZeRO-1 moments, batch) with ``run_config_for``'s hook:
+    the loss and the parameters' CRC bit-equal to the plain step's.
+    Returns the mesh step's launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.weights import tree_map
+    t0 = time.time()
+    cfg = train_configs(get_config, Stage)["train gemma3-1b 6 layers f32"]
+    rc, dev, b, s = train.RUN_CONFIG, torch.device("cuda"), 4, 1024
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def fresh():
+        return tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              rc, dev)
+    step = train.make_train_step(cfg, rc, opt_cfg)
+    params = fresh()
+    with train.deterministic():
+        _, _, metrics = step(params, adamw_init(params), batch)
+    loss, crc = metrics["loss"].item(), train.params_crc(params)
+    del params, metrics
+    torch.cuda.empty_cache()
+    mesh = mesh_mod.make_debug_mesh(1, 1)
+    try:
+        shape = ShapeSpec("mesh", "train", s, b)
+        policy = sharding.choose_policy(cfg, shape)
+        mrc = sharding.run_config_for(cfg, shape, mesh, base=rc,
+                                      policy=policy)
+        params = fresh()
+        st = sharding.distribute_state(cfg, mesh, policy, b, params=params,
+                                       opt=adamw_init(params), inputs=batch)
+        del params
+        for counts in (ops.LAUNCHES, ops.SHARDED):
+            for k in counts:
+                counts[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        with train.deterministic(), implicit_replication():
+            p_mesh, _, m_mesh = train.make_train_step(cfg, mrc, opt_cfg)(
+                st["params"], st["opt"], st["inputs"])
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t1) * 1e3
+        counts, sharded = dict(ops.LAUNCHES), dict(ops.SHARDED)
+        peak = torch.cuda.max_memory_allocated()
+        mesh_loss = m_mesh["loss"].full_tensor().item()
+        mesh_crc = train.params_crc(tree_map(lambda t: t.full_tensor(),
+                                             p_mesh))
+        del st, p_mesh, m_mesh
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if mesh_loss != loss or mesh_crc != crc:
+        raise AssertionError(f"mesh train: loss {mesh_loss} vs {loss}, crc "
+                             f"{mesh_crc} vs {crc}")
+    if min(counts["flash_attention"], counts["flash_attention_bwd"]) <= 0 \
+            or sharded["flash_attention"] <= 0:
+        raise AssertionError(f"mesh train: launches {counts}, DTensor calls "
+                             f"{sharded}")
+    print(f"mesh train [{card()}]: gemma3-1b 6 layers f32 over a 1x1 mesh "
+          f"({policy.mode}), batch {b} x {s}, one step: loss {mesh_loss:.6f} "
+          f"and params CRC {mesh_crc} bit-equal to the plain step "
+          f"({step_ms:.1f} ms, peak {peak / 1e9:.2f} GB); launches {counts}; "
+          f"phase {time.time() - t0:.1f} s", flush=True)
+    return counts
+
+
+def dry_run_cells() -> list:
+    """The records of DRYRUN_CELLS (repro_torch.launch.dryrun on a fake
+    group of 512 ranks, meta shards, no card), each with its seconds."""
+    from repro_torch.launch import dryrun
+    out = []
+    for arch, shape, mesh_kind, _ in DRYRUN_CELLS:
+        t0 = time.time()
+        rec = dryrun.run_cell(arch, shape, mesh_kind, out_dir=str(
+            ROOT / "build" / "dryrun"))
+        rec["seconds"] = time.time() - t0
+        out.append(rec)
+    return out
+
+
+def report_dryrun(records: list) -> list:
+    """One line a dry-run cell; each must count a collective unless its
+    policy needs none (data parallel with replicated parameters, serving:
+    no gradient, no sharded weight), which the line then says."""
+    for (arch, shape, mesh_kind, why), rec in zip(DRYRUN_CELLS, records):
+        r, mem = rec["roofline"], rec["memory"]
+        needs = not (rec["policy"]["mode"] == "dp_zero1"
+                     and not shape.startswith("train"))
+        if needs and not r["collective_s"] > 0:
+            raise AssertionError(f"dryrun {arch} {shape} {mesh_kind}: no "
+                                 "collective counted")
+        note = "" if r["collective_s"] > 0 else (
+            "; no collective: data parallel with replicated parameters, "
+            "serving")
+        colls = ", ".join(f"{k} {int(v)}" for k, v in
+                          sorted(r["coll_counts"].items())) or "none"
+        print(f"dryrun {arch} {shape} {mesh_kind} ({why}): OK, "
+              f"{rec['chips']} chips, head_pad {rec['rc']['head_pad']}; per "
+              f"chip (meta-device counts at H100 constants): arguments "
+              f"{mem['argument_bytes'] / 1e9:.3f} GB, counted "
+              f"{r['counted_flops_per_chip'] / 1e12:.4f} TFLOP and "
+              f"{r['counted_bytes_per_chip'] / 1e9:.3f} GB; collectives "
+              f"{colls}, wire {r['coll_wire_bytes_per_chip'] / 1e9:.4f} GB "
+              f"({r['coll_wire_inter_node_bytes_per_chip'] / 1e9:.4f} GB "
+              f"across nodes); compute {r['compute_s']:.4e} s, memory "
+              f"{r['memory_s']:.4e} s, collective {r['collective_s']:.4e} s "
+              f"({r['dominant']}), roofline_fraction "
+              f"{r.get('roofline_fraction', 0.0):.4f}; "
+              f"{rec['seconds']:.1f} s of one host core{note}", flush=True)
+    return [{"arch": a, "shape": sh, "mesh": mk,
+             "argument_bytes": rec["memory"]["argument_bytes"],
+             **{k: rec["roofline"][k] for k in (
+                 "counted_flops_per_chip", "counted_bytes_per_chip",
+                 "coll_counts", "coll_wire_bytes_per_chip",
+                 "coll_wire_inter_node_bytes_per_chip", "compute_s",
+                 "memory_s", "collective_s", "dominant")}}
+            for (a, sh, mk, _), rec in zip(DRYRUN_CELLS, records)]
+
+
 def run_train_phase(torch, terms: dict) -> dict:
     """``phase_examples`` and ``phase_train`` in a process of its own, which
     this one waits for: the deterministic train step needs
@@ -1109,6 +1404,10 @@ def main(argv) -> int:
     if argv == ["--count-rooflines"]:  # main's counting process: no card
         sys.path.insert(0, str(PORT.parent))
         print(json.dumps(count_rooflines()))
+        return 0
+    if argv == ["--dry-run"]:  # main's dry-run process: no card
+        sys.path.insert(0, str(PORT.parent))
+        print(json.dumps(dry_run_cells()))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -1140,16 +1439,22 @@ def main(argv) -> int:
         examples = phase_examples(torch, ops.LAUNCHES)
         launches = phase_train(torch, train, ops.LAUNCHES, roof, get_config,
                                Stage)
+        mesh_train = phase_mesh_train(torch, ops, train, get_config, Stage)
         print(json.dumps({"launches": launches, "examples": examples,
+                          "mesh_train": mesh_train,
                           "roofline": roof.entries}))
         return 0
     t0 = time.time()
     phase_device(torch)
     # the meta-device counts take a minute or two of one host core: they
     # run beside the build and the kernel phases, on no card
+    no_card = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     counter = subprocess.Popen(
         [sys.executable, __file__, "--count-rooflines"], text=True,
-        stdout=subprocess.PIPE, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        stdout=subprocess.PIPE, env=no_card)
+    # the dry run's five cells on a fake group of 512 ranks, likewise
+    dry = subprocess.Popen([sys.executable, __file__, "--dry-run"],
+                           text=True, stdout=subprocess.PIPE, env=no_card)
     try:
         phase_build(_build)
         kernels = {
@@ -1170,21 +1475,26 @@ def main(argv) -> int:
         if counter.returncode != 0:
             raise RuntimeError(f"roofline counts: exit code "
                                f"{counter.returncode}")
+        dry_out, _ = dry.communicate(timeout=600)
+        if dry.returncode != 0:
+            raise RuntimeError(f"dry run: exit code {dry.returncode}")
     finally:
-        if counter.poll() is None:
-            counter.kill()
-            counter.wait()
+        for proc in (counter, dry):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     terms = json.loads(out)
     print(f"roofline: counted {len(terms)} steps on the meta device in the "
           f"background", flush=True)
+    dryrun_entries = report_dryrun(json.loads(dry_out))
     roof = Rooflines(terms)
-    runs = []
+    runs = [phase_mesh(torch, ops, get_config)]
     for label, args, needs, cfg, once in serve_runs(get_config, Stage):
         run = serve_once if once else phase_serve
         runs.append(run(torch, serve, ops.LAUNCHES, roof, label, args, needs,
                         cfg))
     child = run_train_phase(torch, terms)
-    runs += [child["launches"], child["examples"]]
+    runs += [child["launches"], child["examples"], child["mesh_train"]]
     roof.entries += child["roofline"]
     counts = {k: sum(c[k] for c in runs) for k in ops.LAUNCHES}
     where = {"delta_mask": ("src/repro_torch/kernels/csrc/delta_mask.cu",
@@ -1212,6 +1522,7 @@ def main(argv) -> int:
         for name, res in kernels.items()]}
     print(f"total: {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"roofline": roof.entries}))
+    print(json.dumps({"dryrun": dryrun_entries}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,15 @@ bytes)`` to every recorder that ``record_work`` holds open. The plain
 versions would count the wrong work (the plain flash computes every one
 of the S x S scores, not the causal or window band), and a meta call is
 no launch, so ``LAUNCHES`` does not move.
+
+A DTensor (``launch/sharding.py`` lays a step out over a mesh) runs the op
+on each rank's local shard and is wrapped back with the inputs'
+placements, differentiably: on meta the recorded work is the local
+shard's (what one chip computes), on the card the kernel launches on the
+local shard. Only placements that the kernel computes shard by shard are
+taken: ``flash_attention`` batch and heads, ``ssm_scan`` batch and D,
+``delta_mask`` none. A shard of S, of the head dim or a ``Partial`` sum
+raises; nothing is redistributed behind the caller's back.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import contextlib
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import delta_encode as _delta
 from repro_torch.kernels import flash_attention as _flash
@@ -29,10 +39,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels._build import LAUNCHES
 
-__all__ = ["LAUNCHES", "delta_mask", "delta_pack", "flash_attention",
-           "record_work", "ssm_scan"]
+__all__ = ["LAUNCHES", "SHARDED", "delta_mask", "delta_pack",
+           "flash_attention", "record_work", "ssm_scan", "wrap_local"]
 
 _RECORDERS: list = []  # the lists that record_work holds open
+# calls of each op on DTensors (each runs the op once on its local shard)
+SHARDED = {"delta_mask": 0, "flash_attention": 0, "ssm_scan": 0}
 
 
 @contextlib.contextmanager
@@ -127,12 +139,70 @@ class _FlashAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def _placements(name: str, tensors, allowed) -> tuple:
+    """(mesh, placements) shared by the DTensors among ``tensors``, or
+    None if there are none. Every tensor must be a DTensor on one mesh with
+    the same placements, each ``Replicate`` or a ``Shard`` of a dim in
+    ``allowed``."""
+    dts = [t for t in tensors if isinstance(t, DTensor)]
+    if not dts:
+        return None
+    if len(dts) != len(tensors):
+        raise TypeError(f"{name}: DTensor and plain tensor inputs mixed")
+    mesh, pl = dts[0].device_mesh, dts[0].placements
+    for t in dts[1:]:
+        if t.device_mesh != mesh or t.placements != pl:
+            raise ValueError(f"{name}: inputs laid out differently: "
+                             f"{[t.placements for t in dts]}")
+    for p in pl:
+        if not (isinstance(p, Replicate)
+                or (isinstance(p, Shard) and p.dim in allowed)):
+            raise ValueError(
+                f"{name}: placement {p} of {pl} cannot be computed shard "
+                f"by shard (allowed: Replicate, Shard of dims "
+                f"{sorted(allowed)}); redistribute first")
+    return mesh, pl
+
+
+def wrap_local(local: torch.Tensor, mesh, placements) -> DTensor:
+    """Each rank's ``local`` result as a DTensor (differentiable), its
+    global shape from the shards' even split and its global strides laid
+    out as the local tensor's (a size-1 dim included), so that the ops
+    that follow decide as they would on a plain tensor (``torch.matmul``
+    folds a 3-D operand into one product only if its strides say it is
+    contiguous)."""
+    shape = list(local.shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            shape[p.dim] *= mesh.shape[i]
+    order = sorted(range(local.ndim), key=lambda d: (-local.stride(d), d))
+    stride, step = [0] * local.ndim, 1
+    for d in reversed(order):
+        stride[d] = step
+        step *= shape[d]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     scale=None):
     """q: (B, H, S, D), k: (B, Hk, S, D), v: (B, Hk, S, Dv) -> (B, H, S, Dv)
     in ``q.dtype``. H % Hk == 0; query head h reads kv head h // (H/Hk).
     Differentiable in q, k and v; without a gradient (serving) it runs the
-    forward alone and keeps nothing for a backward."""
+    forward alone and keeps nothing for a backward. DTensor inputs share
+    their placements, sharded over batch (dim 0) or heads (dim 1) only."""
+    laid = _placements("flash_attention", (q, k, v), {0, 1})
+    if laid is not None:
+        if any(isinstance(p, Shard) and p.dim == 1 for p in laid[1]) \
+                and q.shape[1] != k.shape[1]:
+            # a rank's query heads would read other ranks' kv heads
+            raise ValueError("flash_attention: heads sharded with H != Hk; "
+                             "expand k and v to H first")
+        SHARDED["flash_attention"] += 1
+        return wrap_local(flash_attention(q.to_local(), k.to_local(),
+                                          v.to_local(), causal=causal,
+                                          window=window, scale=scale),
+                          *laid)
     _flash.check_args(q, k, v)
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window {window} must be positive")
@@ -172,7 +242,7 @@ class _SSMScan(torch.autograd.Function):
         route = _route(decay, "ssm_scan")
         if route == "meta":  # start is state0 there, as on the CPU
             _meta_work("ssm_scan_bwd", _ssm.bwd_work(*decay.shape))
-            return tuple(map(torch.empty_like, ctx.saved_tensors))
+            return tuple(map(torch.empty_like, (decay, u, c, start)))
         if route == "cpu":
             return ref.ssm_scan_bwd_ref(decay, u, c, start, dy, dfinal)
         if dfinal is not None:
@@ -193,7 +263,10 @@ def ssm_scan(decay, u, c, state0):
     (B, D, N). Returns (y (B, S, D) f32, final state (B, D, N) f32):
     ``s_t = decay_t*s_{t-1} + u_t``, ``y_t = sum_n s_t[..., n]*c_t[n]``.
     Differentiable in decay, u, c and state0; without a gradient (serving)
-    it runs the forward alone and keeps nothing for a backward."""
+    it runs the forward alone and keeps nothing for a backward. DTensor
+    inputs are sharded over batch or D only (c and state0 accordingly)."""
+    if any(isinstance(t, DTensor) for t in (decay, u, c, state0)):
+        return _ssm_scan_dtensor(decay, u, c, state0)
     _ssm.check_args(decay, u, c, state0)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (decay, u, c, state0)):
@@ -206,10 +279,46 @@ def ssm_scan(decay, u, c, state0):
     return _ssm.ssm_scan_cuda(decay, u, c, state0)
 
 
+def _ssm_scan_dtensor(decay, u, c, state0):
+    """``ssm_scan`` on each rank's shard: per mesh dim, decay and u are
+    Shard(0) (batch) or Shard(2) (D) or Replicate; c follows the batch
+    shard alone, state0 both."""
+    mesh, pl = _placements("ssm_scan", (decay, u), {0, 2})
+    c_pl, s_pl, y_pl = ssm_scan_placements(pl)
+    want = {"c": c_pl, "state0": s_pl}
+    for name, t in (("c", c), ("state0", state0)):
+        if not isinstance(t, DTensor) or t.device_mesh != mesh \
+                or t.placements != want[name]:
+            raise ValueError(
+                f"ssm_scan: {name} laid out as "
+                f"{getattr(t, 'placements', 'a plain tensor')}, decay and "
+                f"u as {pl}: want {want[name]}")
+    SHARDED["ssm_scan"] += 1
+    y, final = ssm_scan(decay.to_local(), u.to_local(), c.to_local(),
+                        state0.to_local())
+    return wrap_local(y, mesh, y_pl), wrap_local(final, mesh, s_pl)
+
+
+def ssm_scan_placements(pl) -> tuple:
+    """(c's, state0's and the final state's, y's) placements for decay and
+    u laid out as ``pl`` (each Replicate, Shard(0) or Shard(2))."""
+    return (tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl),
+            tuple(Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+                  else Replicate() for p in pl),
+            tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+                  for p in pl))
+
+
 def delta_mask(new, old, *, block: int = 2048, bpt: int = 8):
     """new, old: 1-D uint8 tensors of equal length, a multiple of
     ``block * bpt``. Returns the int8 mask of length n_blocks
-    (1 = block changed)."""
+    (1 = block changed). A DTensor input must be replicated: a shard's
+    blocks would not be the snapshot's."""
+    laid = _placements("delta_mask", (new, old), set())
+    if laid is not None:
+        SHARDED["delta_mask"] += 1
+        return wrap_local(delta_mask(new.to_local(), old.to_local(),
+                                     block=block, bpt=bpt), *laid)
     _delta.check_args(new, old, block, bpt)
     route = _route(new, "delta_mask")
     if route == "meta":

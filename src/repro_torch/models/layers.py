@@ -9,6 +9,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 def normal_init(gen: torch.Generator, shape, dtype, device,
@@ -19,6 +20,63 @@ def normal_init(gen: torch.Generator, shape, dtype, device,
     t = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
     return t.mul_(std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Reshapes and partial sums of DTensors (a step laid out over a mesh)
+# ---------------------------------------------------------------------------
+
+
+def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)``. A DTensor first gathers each mesh dim that
+    shards a dim the reshape cannot keep sharded, where a DTensor raises
+    and XLA regathers: a dim inside a merged or split group other than
+    the group's first, or a first whose new size the shards do not divide
+    (a head split of a dim that carries fewer heads than the model axis)."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    shape = list(shape)
+    if -1 in shape:
+        i = shape.index(-1)
+        shape[i] = x.numel() // math.prod(n for n in shape if n != -1)
+    lead = 0
+    while lead < min(x.ndim, len(shape)) and x.shape[lead] == shape[lead]:
+        lead += 1
+    trail = 0
+    while trail < min(x.ndim, len(shape)) - lead \
+            and x.shape[-1 - trail] == shape[-1 - trail]:
+        trail += 1
+    touched = range(lead, x.ndim - trail)
+    shards = [x.device_mesh.shape[i] for i, p in enumerate(x.placements)
+              if isinstance(p, Shard) and p.dim == lead]
+    keep_lead = lead < len(shape) and shape[lead] % math.prod(shards) == 0
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in touched
+          and not (p.dim == lead and keep_lead) else p
+          for p in x.placements]
+    if list(x.placements) != pl:
+        x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*shape)
+
+
+def shard_offset(x: DTensor, dim: int) -> int:
+    """Where this rank's shard of ``x``'s ``dim`` starts in the global
+    dim (the slices nest in mesh order)."""
+    coord, offset = x.device_mesh.get_coordinate(), 0
+    for i, p in enumerate(x.placements):
+        if p == Shard(dim):
+            offset = offset * x.device_mesh.shape[i] + coord[i]
+    return offset * x.to_local().shape[dim]
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending partial sums (the output of a contraction over a
+    sharded dim) summed now; anything else unchanged."""
+    if isinstance(x, DTensor) and any(isinstance(p, Partial)
+                                      for p in x.placements):
+        return x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements])
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -26,10 +26,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import MambaSpec, RWKVSpec
 from repro_torch.kernels import ops
-from repro_torch.models.layers import normal_init
+from repro_torch.models.layers import normal_init, reduce_partial, reshape
 
 
 def init_mamba(gen: torch.Generator, d_model: int, spec: MambaSpec, dtype,
@@ -79,7 +80,9 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
 def _mamba_ssm_params(params, xc, spec: MambaSpec, d_model: int):
     """xc: (B,S,di) post-conv. Returns decay_log, u, C, all f32."""
     r = spec.resolved_dt_rank(d_model)
-    dbc = xc @ params["x_proj"]
+    # over a mesh, the TP-sharded contraction's partial sums are summed
+    # here, on (B,S,r+2N), not on the (B,S,di,N) scan inputs
+    dbc = reduce_partial(xc @ params["x_proj"])
     dt, bmat, cmat = torch.split(dbc, [r, spec.d_state, spec.d_state],
                                  dim=-1)
     dt = F.softplus((dt @ params["dt_proj"]).float()
@@ -96,6 +99,25 @@ def _gate_out(params, y, xc, z, x_dtype):
     return y @ params["out_proj"]
 
 
+def _scan_layout(decay, u, cmat, state_shape):
+    """The scan's DTensor inputs laid out as the kernel takes them, shard by
+    shard: decay and u sharded over batch or D only (anything else
+    gathered), c over the batch alone, and a zero state0 to match."""
+    mesh = decay.device_mesh
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+               for p in decay.placements)
+    c_pl, s_pl, _ = ops.ssm_scan_placements(pl)
+    local = list(state_shape)
+    for i, p in enumerate(s_pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.shape[i]
+    state0 = ops.wrap_local(torch.zeros(local, dtype=torch.float32,
+                                        device=decay.to_local().device),
+                            mesh, s_pl)
+    return (decay.redistribute(mesh, pl), u.redistribute(mesh, pl),
+            cmat.redistribute(mesh, c_pl), state0)
+
+
 def mamba_forward(params: dict, x: torch.Tensor, spec: MambaSpec,
                   d_model: int, *, cache: Optional[dict] = None):
     """Prefill. x: (B,S,d). Returns (out, cache|None); a given cache gets
@@ -110,6 +132,8 @@ def mamba_forward(params: dict, x: torch.Tensor, spec: MambaSpec,
     decay = decay_log.exp_()
     state0 = torch.zeros((x.shape[0], spec.d_inner(d_model), spec.d_state),
                          dtype=torch.float32, device=x.device)
+    if isinstance(decay, DTensor):
+        decay, u, cmat, state0 = _scan_layout(decay, u, cmat, state0.shape)
     y, state = ops.ssm_scan(decay, u, cmat.contiguous(), state0)
     del decay_log, decay, u  # (B,S,di,ds) f32: free before the projection
     out = _gate_out(params, y, xc, z, x.dtype)
@@ -198,7 +222,7 @@ def _ddlerp(params, x, xx):
     base = xf + dx * params["mix_x"].float()
     lora = torch.tanh(base.to(x.dtype) @ params["mix_w1"])  # (B,S,5*ml)
     b, s, _ = x.shape
-    lora = lora.reshape(b, s, 5, -1)
+    lora = reshape(lora, b, s, 5, -1)
     dyn = torch.einsum("bsfm,fmd->bsfd", lora, params["mix_w2"])
     mix = params["mix_mu"].float() + dyn.float()  # (B,S,5,d)
     out = xf[:, :, None, :] + dx[:, :, None, :] * mix
@@ -208,14 +232,14 @@ def _ddlerp(params, x, xx):
 def _rwkv_proj(params, xs, h, dh):
     xr, xk, xv, xg, xw = xs
     b, s, _ = xr.shape
-    r = (xr @ params["wr"]).reshape(b, s, h, dh)
-    k = (xk @ params["wk"]).reshape(b, s, h, dh)
-    v = (xv @ params["wv"]).reshape(b, s, h, dh)
+    r = reshape(xr @ params["wr"], b, s, h, dh)
+    k = reshape(xk @ params["wk"], b, s, h, dh)
+    v = reshape(xv @ params["wv"], b, s, h, dh)
     g = F.silu((xg @ params["wg"]).float())
     logw = -torch.exp(params["w0"].float()
                       + (torch.tanh(xw @ params["dw1"])
                          @ params["dw2"]).float())
-    logw = torch.clamp(logw, -20.0, -1e-5).reshape(b, s, h, dh)
+    logw = reshape(torch.clamp(logw, -20.0, -1e-5), b, s, h, dh)
     return r, k, v, g, logw
 
 
@@ -289,11 +313,11 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, spec: RWKVSpec, *,
         cache["wkv"].copy_(state)
 
     # per-head group norm (population variance), then gate and project
-    yf = y.reshape(b, -1, h, dh)
+    yf = reshape(y, b, -1, h, dh)
     mu = yf.mean(-1, keepdim=True)
     var = yf.var(-1, keepdim=True, correction=0)
     yn = (yf - mu) * torch.rsqrt(var + 1e-5)
-    yn = yn.reshape(b, -1, d) * params["ln_x_scale"].float() \
+    yn = reshape(yn, b, -1, d) * params["ln_x_scale"].float() \
         + params["ln_x_bias"].float()
     return (yn * g).to(x.dtype) @ params["wo"], cache
 

@@ -27,19 +27,21 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ArchConfig, LayerSpec, Stage
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
-                                       init_norm, normal_init,
+                                       init_norm, normal_init, shard_offset,
                                        sinusoidal_pos_emb, softcap)
 from repro_torch.weights import tree_leaves
 
@@ -59,6 +61,10 @@ class RunConfig:
     loss_chunk: int = 1024  # seq-chunked vocab xent (recomputed)
     rwkv_chunk: int = 64  # wkv recurrence chunk (train and prefill)
     mla_absorb: bool = True  # MLA decode in the latent space
+    head_pad: int = 1  # pad head counts to this multiple (TP divisibility)
+    # set by the launch layer (launch/sharding.run_config_for):
+    # shard(x, partition_tuple) -> x laid out over the mesh
+    shard: Optional[Callable] = None
 
 
 # ===========================================================================
@@ -67,12 +73,12 @@ class RunConfig:
 
 
 def _init_block(cfg: ArchConfig, spec: LayerSpec, gen, dtype, device,
-                lead) -> dict:
+                lead, head_pad: int = 1) -> dict:
     p = {"ln1": init_norm(cfg.norm, cfg.d_model, dtype, device, lead),
          "ln2": init_norm(cfg.norm, cfg.d_model, dtype, device, lead)}
     if spec.kind == "attn":
         p["mixer"] = attn_mod.init_attn(gen, cfg.d_model, spec.attn, dtype,
-                                        device, lead)
+                                        device, lead, head_pad)
     elif spec.kind == "mamba":
         p["mixer"] = ssm_mod.init_mamba_full(gen, cfg.d_model, spec.mamba,
                                              dtype, device, lead)
@@ -93,8 +99,10 @@ def _init_block(cfg: ArchConfig, spec: LayerSpec, gen, dtype, device,
     return p
 
 
-def _init_superblock(cfg, stage: Stage, gen, dtype, device, lead) -> dict:
-    return {f"L{i}": _init_block(cfg, spec, gen, dtype, device, lead)
+def _init_superblock(cfg, stage: Stage, gen, dtype, device, lead,
+                     head_pad: int = 1) -> dict:
+    return {f"L{i}": _init_block(cfg, spec, gen, dtype, device, lead,
+                                 head_pad)
             for i, spec in enumerate(stage.block)}
 
 
@@ -112,7 +120,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
         params["lm_head"] = normal_init(gen, (cfg.d_model, vp), dtype, device)
     params["stages"] = [
         _init_superblock(cfg, stage, gen, dtype, device,
-                         () if stage.repeat == 1 else (stage.repeat,))
+                         () if stage.repeat == 1 else (stage.repeat,),
+                         rc.head_pad)
         for stage in cfg.stages]
     return params
 
@@ -133,8 +142,11 @@ def _init_layer_cache(cfg, spec: LayerSpec, batch: int, max_len: int, rc,
                                        m.qk_rope_dim), dtype=cd,
                                       device=device)}
     if spec.kind == "attn":
-        shape = (*lead, batch, max_len, spec.attn.n_kv_heads,
-                 spec.attn.head_dim)
+        a = spec.attn
+        nkv = a.n_kv_heads
+        if nkv == a.n_heads:  # MHA: kv padded in lockstep with q
+            nkv = attn_mod.padded_heads(nkv, rc.head_pad)
+        shape = (*lead, batch, max_len, nkv, a.head_dim)
         return {name: torch.zeros(shape, dtype=cd, device=device)
                 for name in ("k", "v")}
     if spec.kind == "rwkv":
@@ -176,13 +188,15 @@ def _apply_mixer(cfg, spec: LayerSpec, rc: RunConfig, params, x, *, mode,
             return attn_mod.mla_decode(params, x, spec.attn, pos=pos,
                                        cache=cache, absorb=rc.mla_absorb)
         return attn_mod.mla_forward(params, x, spec.attn,
-                                    positions=positions, cache=cache)
+                                    positions=positions, cache=cache,
+                                    shard=rc.shard)
     if spec.kind == "attn":
         if mode == "decode":
             return attn_mod.gqa_decode(params, x, spec.attn, pos=pos,
                                        cache=cache)
         return attn_mod.gqa_forward(params, x, spec.attn,
-                                    positions=positions, cache=cache)
+                                    positions=positions, cache=cache,
+                                    shard=rc.shard)
     if spec.kind == "rwkv":
         return ssm_mod.rwkv_time_mix(params, x, spec.rwkv,
                                      chunk=rc.rwkv_chunk, cache=cache,
@@ -203,18 +217,23 @@ def _apply_block(cfg, spec: LayerSpec, rc, params, x, *, mode, positions,
     mix_out, _ = _apply_mixer(cfg, spec, rc, params["mixer"], h, mode=mode,
                               positions=positions, pos=pos, cache=cache)
     x = x + mix_out
+    if rc.shard is not None:  # the row-parallel output's partial sums
+        x = rc.shard(x, ("data", None, None))
     aux = 0.0
     h = apply_norm(cfg.norm, params["ln2"], x, cfg.norm_eps)
     if spec.mlp.kind == "dense":
         x = x + apply_mlp(params["mlp"], h, spec.mlp.act)
     elif spec.mlp.kind == "moe":
         y, aux = moe_mod.apply_moe(params["mlp"], h, spec.mlp.moe,
-                                   spec.mlp.act, n_groups=n_groups)
+                                   spec.mlp.act, n_groups=n_groups,
+                                   shard=rc.shard)
         x = x + y
     elif spec.kind == "rwkv":
         y, _ = ssm_mod.rwkv_channel_mix(params["mlp"], h, cache=cache,
                                         mode=mode)
         x = x + y
+    if rc.shard is not None:
+        x = rc.shard(x, ("data", None, None))
     return x, aux
 
 
@@ -223,12 +242,22 @@ def _apply_superblock(cfg, stage: Stage, rc, params, x, *, mode, positions,
     aux_total = 0.0
     for i, spec in enumerate(stage.block):
         li = f"L{i}"
-        x, aux = _apply_block(cfg, spec, rc, params[li], x, mode=mode,
+        x, aux = _apply_block(cfg, spec, rc, _gathered(rc, params[li]), x,
+                              mode=mode,
                               positions=positions, pos=pos,
                               cache=None if cache is None else cache[li],
                               n_groups=n_groups)
         aux_total = aux_total + aux
     return x, aux_total
+
+
+def _gathered(rc: RunConfig, params):
+    """A layer's parameters as it computes with them: under a mesh hook
+    with FSDP, their shards over the data axes all-gathered first (ZeRO-3;
+    XLA inserts the same all-gather for the JAX package). Without a hook
+    the tree itself."""
+    gather = getattr(rc.shard, "gather_fsdp", None)
+    return params if gather is None else gather(params)
 
 
 def _index(tree, r: int):
@@ -264,11 +293,12 @@ def _apply_stage(cfg, stage: Stage, rc, params, x, *, mode, positions, pos,
     return x, aux_total
 
 
-def _embed(cfg: ArchConfig, params, tokens, frontend, positions):
+def _embed(cfg: ArchConfig, params, tokens, frontend, positions,
+           rc: RunConfig = RunConfig()):
     """Token embeddings (scaled in f32 where the arch asks), the front end's
     embeddings cast to their dtype and prepended, then sinusoidal positions
     added in f32 where the arch has them."""
-    x = params["embed"][tokens]
+    x = _lookup(_gathered(rc, params["embed"]), tokens)
     if cfg.scale_embed:
         x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
     if frontend is not None:
@@ -279,9 +309,13 @@ def _embed(cfg: ArchConfig, params, tokens, frontend, positions):
     return x
 
 
-def _logits(cfg: ArchConfig, params, x):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = softcap(x @ head, cfg.logit_softcap)
+def _logits(cfg: ArchConfig, params, x, rc: RunConfig = RunConfig()):
+    head = _gathered(rc, params["embed"]).T if cfg.tie_embeddings \
+        else _gathered(rc, params["lm_head"])
+    logits = x @ head
+    if rc.shard is not None:
+        logits = rc.shard(logits, ("data", None, "model"))
+    logits = softcap(logits, cfg.logit_softcap)
     vp = padded_vocab(cfg.vocab_size)
     if vp != cfg.vocab_size:  # mask padded vocab rows
         valid = torch.arange(vp, device=x.device) < cfg.vocab_size
@@ -307,12 +341,14 @@ def forward(cfg: ArchConfig, params, tokens, *, frontend=None,
         x = _embed(cfg, params, tokens, None,
                    torch.full((b, 1), pos, dtype=torch.int64,
                               device=tokens.device)
-                   if cfg.pos_emb == "sinusoidal" else None)
+                   if cfg.pos_emb == "sinusoidal" else None, rc)
     else:
         total = s + (frontend.shape[1] if frontend is not None else 0)
         positions = torch.arange(total, device=tokens.device)
-        x = _embed(cfg, params, tokens, frontend, positions[None])
+        x = _embed(cfg, params, tokens, frontend, positions[None], rc)
     n_groups = moe_mod.default_groups(b, x.shape[1], mode)
+    if rc.shard is not None:
+        x = rc.shard(x, ("data", None, None))
     aux_total = 0.0
     for i, stage in enumerate(cfg.stages):
         x, aux = _apply_stage(cfg, stage, rc, params["stages"][i], x,
@@ -330,10 +366,62 @@ def forward(cfg: ArchConfig, params, tokens, *, frontend=None,
 # ===========================================================================
 
 
-def _xent_chunk(cfg: ArchConfig, params, x_c, lab_c):
-    logits = _logits(cfg, params, x_c).float()
+def _lookup(table, tokens):
+    """``table[tokens]``. For DTensors, each rank looks its own tokens up
+    in its own rows of the table and the result is wrapped back: sharded
+    as the tokens' batch, and for a vocab-sharded table zero outside the
+    rank's rows, with the partial sums pending (Megatron's vocab-parallel
+    embedding). DTensor's own ``index`` takes no token batch split over
+    two mesh dims in some torch releases."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    rows = tuple(Shard(0) if p == Shard(0) and i not in vocab
+                 else Replicate() for i, p in enumerate(tokens.placements))
+    tok = tokens.redistribute(mesh, rows).to_local()
+    local = table.redistribute(mesh, tuple(
+        Shard(0) if i in vocab else Replicate()
+        for i in range(mesh.ndim))).to_local()
+    if not vocab:
+        return ops.wrap_local(local[tok], mesh, rows)
+    n = local.shape[0]
+    rel = tok - shard_offset(table, 0)
+    inside = (rel >= 0) & (rel < n)
+    x = local[rel.clamp(0, n - 1)] * inside[..., None]
+    return ops.wrap_local(x, mesh, tuple(
+        Partial() if i in vocab else p for i, p in enumerate(rows)))
+
+
+def _label_logits(logits, labels):
+    """``logits.gather(-1, labels[..., None])[..., 0]``. For a DTensor
+    whose vocab dim is sharded, the vocab-parallel gather (Megatron's):
+    each rank gathers the labels inside its vocab slice, zero elsewhere,
+    and the partial sums reduce once, on the (B, C) result."""
+    vdim = logits.ndim - 1
+    if not (isinstance(logits, DTensor)
+            and Shard(vdim) in logits.placements):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    mesh = logits.device_mesh
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
+                 for p in logits.placements)
+    lab = labels.redistribute(mesh, rows).to_local()
+    local = logits.redistribute(mesh, tuple(
+        Shard(vdim) if p == Shard(vdim) else r
+        for p, r in zip(logits.placements, rows))).to_local()
+    n = local.shape[-1]
+    rel = lab - shard_offset(logits, vdim)
+    inside = (rel >= 0) & (rel < n)
+    ll = local.gather(-1, rel.clamp(0, n - 1)[..., None])[..., 0] * inside
+    return ops.wrap_local(ll, mesh, tuple(
+        Partial() if p == Shard(vdim) else r
+        for p, r in zip(logits.placements, rows)))
+
+
+def _xent_chunk(cfg: ArchConfig, rc: RunConfig, params, x_c, lab_c):
+    logits = _logits(cfg, params, x_c, rc).float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, lab_c.clamp_min(0)[..., None])[..., 0]
+    ll = _label_logits(logits, lab_c.clamp_min(0))
     mask = (lab_c >= 0).float()
     return ((lse - ll) * mask).sum(), mask.sum()
 
@@ -355,7 +443,8 @@ def _chunked_xent(cfg: ArchConfig, rc: RunConfig, params, x, labels):
     sum_e = torch.zeros((), dtype=torch.float32, device=x.device)
     sum_m = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(nc):  # the JAX package's lax.scan over chunks
-        e, m = checkpoint(_xent_chunk, cfg, params, x[:, i * c:(i + 1) * c],
+        e, m = checkpoint(_xent_chunk, cfg, rc, params,
+                          x[:, i * c:(i + 1) * c],
                           labels[:, i * c:(i + 1) * c], use_reentrant=False,
                           preserve_rng_state=False)
         sum_e, sum_m = sum_e + e, sum_m + m
@@ -387,7 +476,7 @@ def prefill(cfg: ArchConfig, params, tokens, caches,
     decode continues at Nf + S."""
     hidden, caches, _ = forward(cfg, params, tokens, frontend=frontend,
                                 mode="prefill", caches=caches, rc=rc)
-    return _logits(cfg, params, hidden[:, -1:])[:, -1], caches
+    return _logits(cfg, params, hidden[:, -1:], rc)[:, -1], caches
 
 
 @torch.no_grad()
@@ -396,7 +485,7 @@ def decode_step(cfg: ArchConfig, params, tokens, pos: int, caches,
     """tokens (B,1), pos: int. Returns (logits (B,V), caches)."""
     hidden, caches, _ = forward(cfg, params, tokens, mode="decode",
                                 caches=caches, pos=pos, rc=rc)
-    return _logits(cfg, params, hidden)[:, -1], caches
+    return _logits(cfg, params, hidden, rc)[:, -1], caches
 
 
 class Model:

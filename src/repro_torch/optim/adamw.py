@@ -9,12 +9,21 @@ new parameters and moments into the given ones, leaf by leaf, as the JAX
 train step donates its parameter and optimizer buffers to XLA: a step
 then holds the train state once, not twice (musicgen-large's whole
 38.8 GB state would not fit twice on an 80 GB card).
+
+On DTensors (a step laid out over a mesh by ``launch/sharding.py``) the
+moments keep ``opt_shardings``' layout: each gradient is first laid out
+as its moments (under ZeRO-1, a reduce-scatter of the gradient onto the
+TP-sharded moments), the update is computed there, and the new parameter
+is laid out as the parameter before the in-place write (under ZeRO-1 the
+all-gather of the update); an in-place op cannot change a DTensor's
+placements. Without a mesh nothing is redistributed.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.weights import tree_leaves, tree_map
 
@@ -59,11 +68,19 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
 
+def _as_moment(t, m):
+    """``t`` laid out as its moment ``m`` (a DTensor), else unchanged."""
+    if isinstance(t, DTensor) and isinstance(m, DTensor):
+        return t.redistribute(m.device_mesh, m.placements)
+    return t
+
+
 def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
     """Returns (new_params, new_opt_state, grad_norm). The new parameters
     and moments are written into ``params`` and ``opt_state``'s, which are
     returned (the step is a new tensor); each leaf is clipped, moved and
     updated in turn, with the reference's arithmetic."""
+    grads = tree_map(_as_moment, grads, opt_state["m"])
     scale, gnorm = _clip_scale(grads, cfg.grad_clip)
     step = opt_state["step"] + 1
     lr = _schedule(cfg, step)
@@ -72,13 +89,16 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
 
     def upd(p, g, m, v):
         gf = (g.float() * scale).to(g.dtype).float()
+        pf = _as_moment(p.float(), m)
         m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(gf))
         mhat = m / b1c
         vhat = v / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + \
-            cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
+        new = (pf - lr * delta).to(p.dtype)
+        if isinstance(p, DTensor):  # ZeRO-1: the all-gather of the update
+            new = new.redistribute(p.device_mesh, p.placements)
+        p.copy_(new)
 
     tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
     return params, {"m": opt_state["m"], "v": opt_state["v"],

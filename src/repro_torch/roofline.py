@@ -6,7 +6,7 @@ model's ``prefill``, ``decode_step`` or train step (loss, backward and the
 in-place AdamW update of ``launch/train.py``), on meta tensors, where
 nothing is allocated or computed, and counts what each op would do:
 
-  - FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` (products and
+  - FLOPs: the formulas of ``torch.utils.flop_counter`` (products and
     convolutions, 2 per multiply-add; elementwise ops count 0, as in the
     JAX module's HLO walk);
   - bytes: each aten op's operands read once and results written once.
@@ -27,8 +27,20 @@ nothing is allocated or computed, and counts what each op would do:
 
 Python loops (stacked stages, loss chunks, RWKV chunks) run as they run on
 the card, so each iteration is counted: the analogue of the JAX module's
-while-loop trip counts. Collectives: none on one card (``collective_s`` is
-0 until the sharding slice models them).
+while-loop trip counts.
+
+Over a mesh (DTensors, ``launch/dryrun.py``) the counts are one chip's:
+the counting mode passes every op on DTensors to DTensor, which runs it as
+ops on the local shards and the collectives its redistributions need, and
+counts those. FLOPs are the registry's of ``torch.utils.flop_counter``
+(``FlopCounterMode`` above the DTensors would count the global ops), and
+the ops that DTensor's sharding propagation runs on fake tensors of the
+global shapes are not counted. Each collective (``_c10d_functional``)
+adds the JAX module's modeled wire bytes a device: all-gather (n-1)/n of
+its output, reduce-scatter (n-1) times its output, all-reduce 2(n-1)/n of
+its operand, all-to-all (n-1)/n of it; a group within one 8-GPU node
+moves them at the NVLink rate, a group that spans nodes at the
+inter-node rate.
 
 Hardware model: one NVIDIA H100 SXM at its 700 W limit (data sheet), HBM
 3.35e12 B/s, dense bf16 989e12 FLOP/s; float32 products at the 3xTF32 rate
@@ -42,9 +54,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_mod
@@ -56,6 +71,10 @@ HBM_BW = 3.35e12  # bytes/s, H100 SXM data sheet
 # dense tensor-core rates, H100 SXM data sheet; f32 as 3xTF32
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
 NVLINK_BW = 450e9  # bytes/s each way, H100 SXM NVLink 4 (900 GB/s both)
+# bytes/s each way a GPU between nodes: one 400 Gb/s ConnectX-7 NIC a GPU
+# (DGX H100 data sheet: 8 of them for 8 GPUs)
+INTER_NODE_BW = 50e9
+GPUS_PER_NODE = 8  # one DGX / HGX H100 node
 
 _aten = torch.ops.aten
 # ops that allocate or reshape without moving data (``func.is_view`` covers
@@ -71,7 +90,10 @@ _SCATTER = {_aten.index_copy_, _aten.index_put_, _aten.index_add_,
 
 
 def _nbytes(t: torch.Tensor) -> int:
-    """Bytes a tensor addresses: a broadcast (stride-0) dim counts once."""
+    """Bytes a tensor addresses: a broadcast (stride-0) dim counts once; a
+    DTensor's are its local shard's."""
+    if isinstance(t, DTensor):
+        t = t.to_local()
     n = t.element_size()
     for size, stride in zip(t.shape, t.stride()):
         if stride:
@@ -105,22 +127,77 @@ def _op_bytes(func, args, kwargs, out):
     return sum(map(_nbytes, reads + written))
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Bytes and calls of every aten op, by op name."""
+_COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
+# functional-collective bookkeeping: no data moves
+_COLL_SKIP = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+def _group_ranks(args) -> list:
+    """The global ranks of a functional collective's group (its last
+    string argument names it)."""
+    name = [a for a in args if isinstance(a, str)][-1]
+    pg = dist.distributed_c10d._resolve_process_group(name)
+    return dist.get_process_group_ranks(pg)
+
+
+def _collective(kind: str, args, out) -> tuple:
+    """(group size, whether the group spans nodes, operand bytes, modeled
+    wire bytes a device) of one functional collective."""
+    ranks = _group_ranks(args)
+    n = len(ranks)
+    in_b = _nbytes(args[0])
+    out_b = sum(map(_nbytes, _tensors(out)))
+    wire = {"all-gather": out_b * (n - 1) / n,
+            "reduce-scatter": out_b * (n - 1),
+            "all-reduce": 2.0 * in_b * (n - 1) / n,
+            "all-to-all": in_b * (n - 1) / n}[kind]
+    spans = len({r // GPUS_PER_NODE for r in ranks}) > 1
+    return n, spans, in_b, wire
+
+
+class _Counter(TorchDispatchMode):
+    """Calls, FLOPs and bytes of every aten op, by op name, and every
+    collective. An op on DTensors is handed back to DTensor, which runs it
+    as ops on the local shards and collectives, and those come here: the
+    counts are one chip's."""
 
     def __init__(self):
         super().__init__()
-        self.rows: dict = {}  # name -> [calls, bytes]
+        self.rows: dict = {}  # name -> [calls, flops, bytes]
+        self.colls: list = []  # (kind, group size, spans nodes, in, wire)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        flat = _tensors((args, kwargs))
+        if any(isinstance(t, DTensor) for t in flat):
+            return NotImplemented
         out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor) for t in flat):
+            return out  # sharding propagation on global shapes: no chip's
+        if func.namespace == "_c10d_functional":
+            name = func.overloadpacket.__name__
+            if name not in _COLL_SKIP:
+                kind = _COLLECTIVES[name]
+                self.colls.append((kind, *_collective(kind, args, out)))
+                self._add(f"collective:{kind}", 0, sum(
+                    map(_nbytes, _tensors(args) + _tensors(out))))
+            return out
         nbytes = _op_bytes(func, args, kwargs, out)
-        if nbytes is not None:
-            row = self.rows.setdefault(str(func.overloadpacket), [0, 0])
-            row[0] += 1
-            row[1] += nbytes
+        packet = func.overloadpacket
+        flops = flop_registry[packet](*args, **kwargs, out_val=out) \
+            if packet in flop_registry else 0
+        if nbytes is not None or flops:
+            self._add(str(packet), flops, nbytes or 0)
         return out
+
+    def _add(self, name: str, flops, nbytes) -> None:
+        row = self.rows.setdefault(name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += float(flops)
+        row[2] += float(nbytes)
 
 
 @dataclass
@@ -128,6 +205,7 @@ class Cost:
     flops: float = 0.0
     bytes: float = 0.0
     coll_wire: float = 0.0  # modeled per-device wire bytes
+    coll_wire_inter: float = 0.0  # of ``coll_wire``, in groups across nodes
     coll_operand_bytes: float = 0.0  # spec metric: sum of operand sizes
     coll_counts: dict = field(default_factory=dict)
     min_bytes: float = 0.0  # each leaf, input and output once
@@ -138,6 +216,7 @@ class Cost:
         self.flops += other.flops * mult
         self.bytes += other.bytes * mult
         self.coll_wire += other.coll_wire * mult
+        self.coll_wire_inter += other.coll_wire_inter * mult
         self.coll_operand_bytes += other.coll_operand_bytes * mult
         for k, v in other.coll_counts.items():
             self.coll_counts[k] = self.coll_counts.get(k, 0) + v * mult
@@ -150,25 +229,26 @@ class Cost:
 
 
 def count(fn, *args, **kwargs):
-    """Runs ``fn(*args, **kwargs)`` (on meta tensors) and returns (its
-    result, the ``Cost`` of what it ran; ``min_bytes`` is left 0)."""
-    counter = _ByteCounter()
-    flops = FlopCounterMode(display=False)
-    with ops.record_work() as kernels, flops, counter:
+    """Runs ``fn(*args, **kwargs)`` (on meta tensors, or DTensors of meta
+    shards) and returns (its result, the ``Cost`` of what it ran, one
+    chip's; ``min_bytes`` is left 0)."""
+    counter = _Counter()
+    with ops.record_work() as kernels, counter:
         result = fn(*args, **kwargs)
     cost = Cost()
-    op_flops = {str(k): v for k, v in flops.get_flop_counts()
-                .get("Global", {}).items()}
-    for name, (calls, nbytes) in counter.rows.items():
-        cost.rows[name] = [calls, float(op_flops.get(name, 0)),
-                           float(nbytes)]
+    cost.rows = counter.rows
     for name, kflops, kbytes in kernels:
         row = cost.rows.setdefault(f"kernel:{name}", [0, 0.0, 0.0])
         row[0] += 1
         row[1] += kflops
         row[2] += kbytes
         cost.kernel_flops += kflops
-    cost.flops = float(flops.get_total_flops()) + cost.kernel_flops
+    for kind, _, spans, in_b, wire in counter.colls:
+        cost.coll_counts[kind] = cost.coll_counts.get(kind, 0) + 1
+        cost.coll_operand_bytes += in_b
+        cost.coll_wire += wire
+        cost.coll_wire_inter += wire if spans else 0.0
+    cost.flops = sum(r[1] for r in cost.rows.values())
     cost.bytes = sum(r[2] for r in cost.rows.values())
     return result, cost
 
@@ -229,7 +309,8 @@ def roofline_terms(cost: Cost, *, dtype, model_flops_per_chip: float = 0.0):
     the peak of the step's compute ``dtype``, memory at the HBM rate."""
     compute_s = cost.flops / PEAK_FLOPS[_dtype_name(dtype)]
     memory_s = cost.bytes / HBM_BW
-    coll_s = cost.coll_wire / NVLINK_BW
+    coll_s = (cost.coll_wire - cost.coll_wire_inter) / NVLINK_BW \
+        + cost.coll_wire_inter / INTER_NODE_BW
     dominant = max(
         (("compute", compute_s), ("memory", memory_s),
          ("collective", coll_s)), key=lambda kv: kv[1])[0]
@@ -240,6 +321,7 @@ def roofline_terms(cost: Cost, *, dtype, model_flops_per_chip: float = 0.0):
         "kernel_flops_share": (cost.kernel_flops / cost.flops
                                if cost.flops else 0.0),
         "coll_wire_bytes_per_chip": cost.coll_wire,
+        "coll_wire_inter_node_bytes_per_chip": cost.coll_wire_inter,
         "coll_operand_bytes_per_chip": cost.coll_operand_bytes,
         "coll_counts": {k: float(v) for k, v in cost.coll_counts.items()},
         "compute_s": compute_s,
