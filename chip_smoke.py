@@ -16,11 +16,13 @@ Phases, one printed line each; any failure raises and exits non-zero:
              and bf16, B=4, H=Hk=40, S=1024, D=96, Dv=64), at
              musicgen-large's (f32, B=4, H=Hk=32, S=64+1024, D=64) and at
              qwen2-vl-2b's (f32, B=4, H=12, Hk=2, S=256+1024, D=128)
-             against its plain version; kernel, plain, bound and library
-             (scaled_dot_product_attention) ms; each line names the
-             kernel's path, mma (bf16) or tf32 (f32 as 3xTF32), both on
-             tensor cores, the rate its bound assumes, and where the head
-             is padded to the kernel's tile, the bound of the padded work
+             against its plain version; two bf16 launches bit-equal;
+             kernel, plain, bound and library (scaled_dot_product_attention)
+             ms; each line names the kernel's path, wgmma (bf16: warpgroup
+             products fed by TMA) or tf32 (f32 as 3xTF32 mma.sync), both on
+             tensor cores, the rate its bound assumes, and where the kernel
+             computes wider than D and Dv (f32: the 64/128/256 tile; bf16:
+             D to 16, Dv to 8), the bound of the padded work
   ssm_scan   the selective-scan kernel at the Jamba prefill shape (f32,
              B=4, S=1024, D=16384, N=16) and a ragged one (S=1000,
              D=16376) against its plain version; kernel, plain, bound ms,
@@ -321,6 +323,18 @@ def phase_delta(torch, ops, ref, changed_blocks, rl, delta) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _forward_widths(flash, flops, d, dv, dtype):
+    """(Q K^T depth, P V width, padded flops): the widths the forward
+    kernel computes at, and ``flops`` at those widths. A checkout from
+    before the bf16 kernel's own widths (tools/flash_ab.py runs this phase
+    on others) computes both products at ``head_tile``."""
+    if hasattr(flash, "product_widths"):
+        return (*flash.product_widths(d, dv, dtype),
+                flash.padded_flops(flops, d, dv, dtype=dtype))
+    tile = flash.head_tile(d, dv)
+    return tile, tile, flash.padded_flops(flops, d, dv)
+
+
 def phase_flash(torch, ops, ref, rl, flash) -> dict:
     import torch.nn.functional as F
     dev = torch.device("cuda")
@@ -376,7 +390,7 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
         work = flash.work(b, h, hk, s, d, dv, window, q.element_size())
         flops, nbytes = work
         bound_ms, bound_by = bound(rl, work, peak)
-        path = "mma" if dtype == torch.bfloat16 else "tf32"
+        path = "wgmma" if dtype == torch.bfloat16 else "tf32"
         label = (f"{name} B={b} H={h} Hk={hk} S={s} D={d}"
                  f"{'' if dv == d else f' Dv={dv}'} window={window} {path}")
         rate = f"at {peak / 1e12:.1f} TFLOP/s"
@@ -384,12 +398,12 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
             rate += (f" (3xTF32); at the CUDA-core "
                      f"{CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s "
                      f"{bound(rl, work, CUDA_CORE_F32_FLOPS)[0]:.4f} ms")
-        tile = flash.head_tile(d, dv)
-        if tile != d or tile != dv:  # both products run tile columns wide
-            padded = (flash.padded_flops(flops, d, dv), nbytes)
-            rate += (f"; the kernel computes at head width {tile}: "
-                     f"{(d + dv) / (2 * tile):.1%} of its products are "
-                     f"real, bound at the padded work "
+        wd, wdv, padded = _forward_widths(flash, flops, d, dv, dtype)
+        if wd != d or wdv != dv:  # the products run wider than D and Dv
+            padded = (padded, nbytes)
+            rate += (f"; the kernel computes Q K^T {wd} and P V {wdv} "
+                     f"wide: {(d + dv) / (wd + wdv):.1%} of its products "
+                     f"are real, bound at the padded work "
                      f"{bound(rl, padded, peak)[0]:.4f} ms")
         print(f"flash_attention[{label}]: max_abs_err {err:.3e} (tol "
               f"{tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
@@ -398,6 +412,10 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
         if not ok:
             raise AssertionError(f"flash_attention {label}: max abs err "
                                  f"{err}")
+        if dtype == torch.bfloat16 and not torch.equal(
+                out, ops.flash_attention(q, k, v, window=window)):
+            raise AssertionError(f"flash_attention {label}: two launches "
+                                 f"differ")
         results[(name, s, window, h)] = {
             "label": label, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,

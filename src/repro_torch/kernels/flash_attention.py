@@ -7,9 +7,10 @@ window, in (B, H, S, D) layout, ``Dv != D`` allowed. Unlike the Pallas
 wrapper it takes any S (the kernel masks the ragged last tile) and GQA
 inputs (k, v with Hk heads, H % Hk == 0) without expanding them.
 ``ops.flash_attention`` dispatches here for CUDA tensors. Both dtypes run
-on tensor cores: bfloat16 in ``flash_fwd_mma``, float32 in
-``flash_fwd_tf32`` (each product as three TF32 products, for f32
-accuracy). The backward (``flash_attention_bwd_cuda``) is the gradient
+on tensor cores: bfloat16 in ``flash_fwd_wgmma`` (warpgroup products fed
+by TMA through an mbarrier ring, shared helpers in ``csrc/hopper.cuh``),
+float32 in ``flash_fwd_tf32`` (each product as three TF32 products, for
+f32 accuracy). The backward (``flash_attention_bwd_cuda``) is the gradient
 that the JAX package leaves to autodiff; it runs in float32, on tensor
 cores as 3xTF32 too, from the log-sum-exp that the f32 forward keeps when
 asked (``with_lse=True``).
@@ -76,26 +77,42 @@ def bwd_work(b, h, hk, s, d, dv, window, itemsize=4, causal=True) -> tuple:
 
 
 def head_tile(d: int, dv: int) -> int:
-    """The head width both kernels compute at: max(D, Dv) rounded up to 64,
-    128 or 256, the zero-filled columns included."""
+    """The head width of the kernels' shared-memory tiles (for bf16, 64-
+    column atoms): max(D, Dv) rounded up to 64, 128 or 256, the zero-filled
+    columns included. The float32 kernels, forward and backward, compute at
+    that width."""
     return next(t for t in (64, 128, 256) if max(d, dv) <= t)
 
 
-def padded_flops(flops: float, d: int, dv: int, backward: bool = False):
-    """``flops`` of ``work`` (or ``bwd_work``) at the kernel's head tile:
-    every product runs ``head_tile`` columns wide."""
+def product_widths(d: int, dv: int, dtype=torch.float32) -> tuple:
+    """(depth of Q K^T, width of P V) that the forward kernel computes for
+    ``dtype``: the bf16 kernel's wgmma runs D rounded up to its k-step of
+    16 and Dv rounded up to its n-step of 8; the float32 kernel runs both
+    at ``head_tile``."""
+    if dtype == torch.bfloat16:
+        return -(-d // 16) * 16, -(-dv // 8) * 8
     tile = head_tile(d, dv)
+    return tile, tile
+
+
+def padded_flops(flops: float, d: int, dv: int, backward: bool = False,
+                 dtype=torch.float32):
+    """``flops`` of ``work`` (or ``bwd_work``) at the widths the kernel
+    computes: the forward's products at ``product_widths``, the backward's
+    (float32 only) all ``head_tile`` wide."""
     if backward:
-        return flops * 5 * tile / (3 * d + 2 * dv)
-    return flops * 2 * tile / (d + dv)
+        return flops * 5 * head_tile(d, dv) / (3 * d + 2 * dv)
+    wd, wdv = product_widths(d, dv, dtype)
+    return flops * (wd + wdv) / (d + dv)
 
 
 def check_mma_layout(tensors: dict) -> None:
-    """The kernels copy 16-byte rows (``cp.async``): each (B, H, S, D)
-    tensor needs a 16-byte aligned data pointer, batch, head and sequence
-    strides that are multiples of 16 bytes, and a last dim that is a
-    multiple of 16 bytes (8 bfloat16 or 4 float32 elements). Raises
-    ValueError naming what fails; there is no other path for such an
+    """The kernels copy 16-byte rows (the f32 kernel with ``cp.async``, the
+    bf16 kernel through TMA tensor maps, which take the same alignment):
+    each (B, H, S, D) tensor needs a 16-byte aligned data pointer, batch,
+    head and sequence strides that are multiples of 16 bytes, and a last
+    dim that is a multiple of 16 bytes (8 bfloat16 or 4 float32 elements).
+    Raises ValueError naming what fails; there is no other path for such an
     input."""
     for name, t in tensors.items():
         n = 16 // t.element_size()

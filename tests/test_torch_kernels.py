@@ -156,28 +156,66 @@ def _body(src, head):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
-    """Each dtype goes to one tensor-core kernel: bf16 to flash_fwd_mma,
-    whose products are mma.sync m16n8k16 bf16; f32 to flash_fwd_tf32, whose
-    products are three mma.sync m16n8k8 tf32 on operands split with the
-    rounding of cvt.rna.tf32.f32, helpers that tf32_mma.cuh holds for both
-    f32 kernels. No SIMT kernel and no scalar product is left."""
+    """Each dtype goes to one tensor-core kernel: bf16 to flash_fwd_wgmma,
+    whose products are wgmma.mma_async bf16 (Q K^T from shared memory, P V
+    with P from registers), fed by TMA tensor copies through mbarriers from
+    a producer warpgroup that hands its registers over with setmaxnreg,
+    helpers that hopper.cuh holds; f32 to flash_fwd_tf32, whose products
+    are three mma.sync m16n8k8 tf32 on operands split with the rounding of
+    cvt.rna.tf32.f32, helpers that tf32_mma.cuh holds for both f32
+    kernels. No SIMT kernel, no scalar product and no warp-level bf16
+    kernel is left."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     hdr = (_build.CSRC / "tf32_mma.cuh").read_text()
-    code, entry, launcher, kernel, product = {
-        "bfloat16": (1, "launch_mma", "launch_bf16", "flash_fwd_mma",
-                     "mma16816"),
-        "float32": (0, "launch_tf32", "launch_f32", "flash_fwd_tf32",
-                    "mma_3xtf32")}[dtype]
-    assert f"if (dtype == {code}) return {entry}(p, B, st);" in src
-    assert set(re.findall(r"mma::(launch_\w+)<",
-                          _body(src, f"int {entry}("))) == {launcher}
-    assert re.findall(r"launch\((flash_fwd_\w+)<",
-                      _body(src, f"int {launcher}(")) == [kernel]
-    assert f"{product}(" in _body(src, f"{kernel}(Params p) {{")
     if dtype == "bfloat16":
-        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" \
-            in _body(src, "void mma16816(")
+        hop = (_build.CSRC / "hopper.cuh").read_text()
+        assert "if (dtype == 1) return launch_wgmma(p, B, st);" in src
+        assert '#include "hopper.cuh"' in src
+        # every branch of the entry launches the one kernel, at some tile,
+        # but the one that refuses head dims that are not multiples of 8
+        entry = _body(src, "int launch_wgmma(")
+        refuse = "return static_cast<int>(cudaErrorInvalidValue);"
+        assert entry.count(refuse) == 1
+        assert entry.count("return wg::launch<") \
+            == entry.count("return ") - 1
+        assert re.findall(r"(flash_fwd_\w+)<HD, BK, KS, VN>\s*<<<",
+                          _body(src, "int launch(const Params& p")) \
+            == ["flash_fwd_wgmma"]
+        kernel = _body(src, "flash_fwd_wgmma(const __grid_constant__")
+        for call in ("tma_load(", "tma_store(", "mbar_wait(", "mbar_arrive(",
+                     "mbar_expect_tx(", "setmaxnreg_dec<", "setmaxnreg_inc<",
+                     "issue_qk<", "issue_pv<", "wgmma_fence(",
+                     "wgmma_commit(", "wgmma_wait<", "named_sync(",
+                     "named_arrive("):
+            assert call in kernel, call
+        # Q K^T from shared memory, P V with P from registers (64 or 128
+        # columns a product)
+        assert "wgmma_ss(" in _body(src, "void issue_qk(")
+        assert "wgmma_rs_tb(" in _body(src, "void issue_pv(")
+        assert "wgmma_rs_tb(" in _body(src, "void pv_atom(")
+        shapes = re.findall(r"wgmma\.mma_async\.sync\.aligned\.m64n(\d+)k16"
+                            r"\.f32\.(\w+)\.(\w+)", hop)
+        assert shapes and all(a == b == "bf16" for _, a, b in shapes)
+        assert "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier" \
+            in _body(hop, "void tma_load(")
+        assert "mbarrier.try_wait.parity" in _body(hop, "void mbar_wait(")
+        assert "setmaxnreg.dec.sync.aligned" in _body(hop,
+                                                      "void setmaxnreg_dec(")
+        assert "cuTensorMapEncodeTiled" in _body(hop,
+                                                 "PFN_cuTensorMapEncodeTiled "
+                                                 "encode_tiled(")
+        for gone in ("mma16816", "flash_fwd_mma", "ldmatrix.sync", "m16n8k16",
+                     "launch_mma"):
+            assert gone not in src, gone
+        assert "mma.sync" not in kernel and "cp.async.cg" not in kernel
     else:
+        assert "if (dtype == 0) return launch_tf32(p, B, st);" in src
+        assert set(re.findall(r"mma::(launch_\w+)<",
+                              _body(src, "int launch_tf32("))) \
+            == {"launch_f32"}
+        assert re.findall(r"launch\((flash_fwd_\w+)<",
+                          _body(src, "int launch_f32(")) == ["flash_fwd_tf32"]
+        assert "mma_3xtf32(" in _body(src, "flash_fwd_tf32(Params p) {")
         assert '#include "tf32_mma.cuh"' in src
         assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" \
             in _body(hdr, "void mma1688(")
@@ -186,8 +224,29 @@ def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
         assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" \
             in _body(hdr, "uint32_t rna_tf32(")
         assert _body(hdr, "void split_tf32(").count("rna_tf32(") == 2
-        assert "split_tf32(" in _body(src, f"{kernel}(Params p) {{")
+        assert "split_tf32(" in _body(src, "flash_fwd_tf32(Params p) {")
     assert "flash_fwd_simt" not in src and "fmaf(" not in src
+
+
+@pytest.mark.parametrize("d,dv,dtype,widths", [
+    (96, 64, torch.bfloat16, (96, 64)),  # MLA: no column of the tile past D
+    (128, 128, torch.bfloat16, (128, 128)),  # Jamba
+    (40, 24, torch.bfloat16, (48, 24)),  # D to the k-step of 16
+    (16, 8, torch.bfloat16, (16, 8)),
+    (256, 200, torch.bfloat16, (256, 200)),
+    (96, 64, torch.float32, (128, 128)),  # the f32 kernel's 128-wide tile
+    (40, 24, torch.float32, (64, 64)),
+])
+def test_flash_product_widths_per_dtype(d, dv, dtype, widths):
+    """The widths each forward kernel computes at, and the padded work the
+    chip_smoke bounds take from them: the bf16 kernel's wgmma runs D up to
+    16 and Dv up to 8, the f32 kernel both at the 64/128/256 tile."""
+    assert flash.product_widths(d, dv, dtype) == widths
+    flops, _ = flash.work(4, 40, 40, 1024, d, dv, None, 2)
+    assert flash.padded_flops(flops, d, dv, dtype=dtype) == pytest.approx(
+        flops * sum(widths) / (d + dv), rel=1e-12)
+    assert flash.head_tile(d, dv) == next(
+        t for t in (64, 128, 256) if max(d, dv) <= t)
 
 
 def _tf32(x):
@@ -551,10 +610,12 @@ _MMA_CASES = pytest.mark.parametrize("b,h,hk,s,d,dv,causal,window", [
     (2, 2, 1, 200, 40, 24, True, None),  # padded head dims
     (2, 4, 2, 300, 64, 64, False, 40),  # non-causal with a window
     (1, 4, 4, 77, 16, 8, True, 5),  # a tile smaller than one of the kernel
+    (1, 40, 40, 1024, 96, 64, True, None),  # minicpm3-4b's MLA heads
+    (1, 8, 2, 1000, 256, 192, True, 300),  # HD = 256, windowed, ragged
 ])
 
 
-# bf16 on tensor cores: products of bf16 inputs summed in f32 (mma.sync),
+# bf16 on tensor cores: products of bf16 inputs summed in f32 (wgmma),
 # P rounded to bf16 before P V, exp2 with log2(e) folded into the scale,
 # and a bf16 output: within 2e-2 of the f32 plain version.
 @pytest.mark.cuda
@@ -572,6 +633,26 @@ def test_flash_attention_mma_kernel(cuda, b, h, hk, s, d, dv, causal,
     assert out.dtype == torch.bfloat16 and out.shape == exp.shape
     torch.testing.assert_close(out.float(), exp.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hk,s,d,dv,window", [
+    (4, 64, 8, 1024, 128, 128, None),  # Jamba's prefill
+    (4, 40, 40, 1024, 96, 64, None),  # minicpm3-4b's MLA heads
+    (1, 8, 2, 1000, 256, 192, 300),  # HD = 256 at run-time widths
+])
+def test_flash_attention_wgmma_kernel_bit_equal(cuda, b, h, hk, s, d, dv,
+                                                window):
+    """Two launches of the bf16 kernel on the same inputs give the same
+    bits: each row's sums run in one fixed order, with no atomics."""
+    gen = torch.Generator(cuda).manual_seed(s + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16) for shape in ((b, h, s, d), (b, hk, s, d),
+                                      (b, hk, s, dv)))
+    first = ops.flash_attention(q, k, v, window=window)
+    second = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # f32 on tensor cores as 3xTF32 (flash_fwd_tf32): each product split
