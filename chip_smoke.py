@@ -42,7 +42,9 @@ Phases, one printed line each; any failure raises and exits non-zero:
              log-sum-exp, against its plain version; two launches
              bit-equal; kernel, plain, bound and library (the backward of
              scaled_dot_product_attention) ms; each line names the path,
-             tf32 (3xTF32 mma.sync)
+             wgmma-tf32 (3xTF32 warpgroup products on tiles that TMA
+             brings), and where the products run wider than D or Dv, the
+             bound of the padded work
   reference  gemma3-1b-reduced, jamba-1.5-large-398b-reduced,
              rwkv6-1.6b-reduced, minicpm3-4b-reduced, qwen2-vl-2b-reduced
              and musicgen-large-reduced prefill + decode on the card
@@ -498,17 +500,22 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
         flops, nbytes = work
         bound_ms, bound_by = bound(rl, work, peak)
         label = (f"f32 B={b} H={h} Hk={hk} S={s} D={d}"
-                 f"{'' if dv == d else f' Dv={dv}'} window={window} tf32")
-        tile = flash.head_tile(d, dv)
+                 f"{'' if dv == d else f' Dv={dv}'} window={window} "
+                 f"wgmma-tf32")
+        # a checkout from before the wgmma backward (tools/flash_ab.py runs
+        # older ones) computes all five products at head_tile
+        widths = (flash.bwd_product_widths(d, dv)
+                  if hasattr(flash, "bwd_product_widths")
+                  else (flash.head_tile(d, dv),) * 5)
         padded = ""
-        if tile != d or tile != dv:  # each product runs tile columns wide
+        if sum(widths) != 3 * d + 2 * dv:  # some products run wider
             t_pad = bound(rl, (flash.padded_flops(flops, d, dv,
                                                   backward=True), nbytes),
                           peak)[0]
-            padded = (f"; the kernel computes its five products at head "
-                      f"width {tile} ({(3 * d + 2 * dv) / (5 * tile):.1%} "
-                      f"of them real), bound at the padded work "
-                      f"{t_pad:.4f} ms")
+            padded = (f"; the kernel computes its five products at widths "
+                      f"{'/'.join(map(str, widths))} "
+                      f"({(3 * d + 2 * dv) / sum(widths):.1%} of them "
+                      f"real), bound at the padded work {t_pad:.4f} ms")
         print(f"flash_attention_bwd[{label}]: max_abs_err {err:.3e} (tol "
               f"{BWD_TOL:g} of each gradient's max); two launches bit-equal; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "

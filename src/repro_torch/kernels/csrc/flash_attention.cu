@@ -104,10 +104,10 @@
 //     floats;
 //   - Q is split again on every KV tile: split Q would not fit beside the
 //     K and V tiles at HD = 256;
-//   - the split and mma helpers live in tf32_mma.cuh, shared with the
-//     backward; where the caller passes an lse buffer (training), group 0
-//     writes each row's log-sum-exp m + log2(l) after the merge, in the
-//     log2 domain of the scores, so the backward need not recompute it.
+//   - the split and mma helpers live in tf32_mma.cuh; where the caller
+//     passes an lse buffer (training), group 0 writes each row's
+//     log-sum-exp m + log2(l) after the merge, in the log2 domain of the
+//     scores, so the backward need not recompute it.
 // Both read kv head h / (H / Hk) directly instead of a copy (GQA), take any
 // S (the ragged last tile is masked), Dv != D, and strided q, k, v with a
 // unit last dimension, 16-byte aligned pointers and row strides, which the

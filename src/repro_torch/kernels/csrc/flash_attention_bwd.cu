@@ -21,72 +21,133 @@
 // 2 * (3 D + 2 Dv) flops a (query, key) pair: at gemma3-1b's global layer
 // (B=4, H=4, Hk=1, S=1024, D=256) 21.5 GFLOP, 0.130 ms at the 3xTF32 rate
 // (494.7 / 3 TFLOP/s), against 25 MB of inputs and outputs (0.008 ms at
-// 3.35 TB/s). This file runs seven: S and dP are computed once for dK and
-// dV and again for dQ.
+// 3.35 TB/s). This file runs those five products and no others: dS goes
+// to device memory once, where the dQ pass reads it, instead of S and dP
+// being computed a second time for dQ.
 //
-// Design: every product on tensor cores in 3xTF32 (tf32_mma.cuh: each f32
-// operand split into TF32 big + small, three mma.sync m16n8k8 a product,
-// about f32 accuracy; one TF32 product misses the 1e-4 tolerance). Blocks
-// of 8 warps, 32-key and 32-query tiles in shared memory, head dims
-// zero-filled to HD in {64, 128, 256}; rows of Q, K, V and dO tiles are
-// padded by 8 floats, of P and dS tiles by 4, so that every fragment read
-// of a warp falls on 32 banks. Tiles are copied with 4-byte cp.async (any
-// alignment, so no layout rule beyond a unit last stride), and the tiles a
-// block walks are double-buffered: the next one copies while this one
-// computes. S and dP run as four independent mma chains a warp (two
-// tiles, even and odd steps). Four kernels on one stream:
+// Design: every product is wgmma.mma_async m64nNk8 tf32 in 3xTF32 (small *
+// big + big * small, then + big * big; hopper.cuh). tf32 wgmma reads A and
+// B K-major only, and three of the five products contract over the rows
+// that TMA brings (queries or keys), so every A operand comes from
+// registers, loaded from the landed tile in whatever order the product
+// needs and split there (big = x with its 13 low mantissa bits cleared,
+// small = x - big rounded to TF32), and every B operand is a K-major tile
+// in shared memory that is an exact TF32 value: K and V split once by a
+// pre-pass, P^T and dS^T split when they are written. Five kernels on one
+// stream:
 //   1. flash_bwd_delta, one warp a row: delta = rowsum(dO o O). Bytes.
-//   2. flash_bwd_dkdv, one block per (b, query head, key tile): K and V
-//      stay in shared memory; the block walks the query tiles of the band
-//      and computes S^T = K Q^T and dP^T = V dO^T (one 16x8 C tile a warp
-//      each), P^T = 2^(S^T scale log2 e - lse) and dS^T = P^T o (dP^T -
-//      delta) into shared memory, then dV += P^T dO and dK += dS^T Q, the
-//      32 x HD sums in mma C fragments in registers (at HD = 256, 8 tiles
-//      of 16x8 a warp for each: 64 floats a thread). The grid's y is the
-//      key tile, so the tiles that the causal band gives most rows start
-//      first; at gemma3-1b's shape it is 512 blocks whose longest walks 32
-//      query tiles (a kv-head grid would be 128 blocks walking up to 128).
-//      Smem: 65,024 bytes at HD = 64, 114,176 at 128, 212,480 at 256 (one
-//      block an SM).
-//   3. flash_bwd_dkdv_sum, one block per (b, kv head, key): where a kv
-//      head serves a group of G > 1 query heads, step 2 writes
-//      per-query-head partials of dK and dV to f32 scratch (B,H,S,D) and
-//      (B,H,S,Dv), and this pass adds each group's G partials in head
-//      order and applies scale to dK. Bytes. With G = 1 step 2 writes dK
-//      and dV directly and this pass does not run.
-//   4. flash_bwd_dq, one block per (b, query head, query tile): Q, dO and
-//      the rows' lse and delta stay in shared memory; the block walks the
-//      key tiles of the band, computes S, dP and dS the same way, and dQ
-//      += dS K. The grid's y runs backwards, so the tiles that see most
-//      keys start first. Smem: 60,160 bytes at HD = 64, 109,312 at 128,
-//      207,616 at 256.
+//   2. flash_bwd_prep_kv: K and V split once into big and small halves,
+//      (B, Hk, 2, S, D8) and (B, Hk, 2, S, Dv8) with D8, Dv8 the widths
+//      rounded up to 8, and K's halves transposed, (B, Hk, 2, D, ld) with
+//      ld = S rounded up to 8 (a 32 x 32 tile through shared memory); the
+//      halves' k index (columns; K^T's keys) permuted within each 8 as the
+//      A fragments read theirs (kpos), so that a lane loads its two k
+//      values of a fragment as one float2. Bytes: 7 x those of K and V.
+//   3. flash_bwd_dkdv: blocks of 384 threads over work items (b, query
+//      head, key tile of BK keys), the longest walks of the causal band
+//      first: up to HD = 128 persistent, a block an SM taking items in
+//      turn; at HD = 256 a block an item, which the card deals to SMs as
+//      they free up (its items are few and unequal, and a static deal
+//      measured slower). The first thread of the producer warpgroup loads
+//      an item's K and V halves by TMA (kv_full; kv_empty once the item's
+//      last S and dP have read them), then streams the 64-row query tiles
+//      of the band (aligned to 64) through a ring of ST stages that runs on
+//      across items: Q and dO as they lie in q and dout (4-D tensor maps
+//      over the views' strides), each 32-column atom on full and empty
+//      mbarriers of its own, so that an atom reloads as soon as its last
+//      reader is done and S starts on the first atom while the rest lands.
+//      Two consumer warpgroups share each query tile:
+//        warpgroup 0: S = Q K^T (A: Q's rows, B: K's halves), P = 2^(S
+//          scale log2 e - lse), masked, written to shared memory as P^T's
+//          big and small halves (keys x queries); then dK^T += Q^T dS (A:
+//          Q's columns, read down the tile; B: dS^T's halves), D rows;
+//        warpgroup 1: dP = dO V^T, then, once P is written, dS = (P big +
+//          P small) o (dP - delta) into dS^T's halves and, as f32, into the
+//          dS scratch (B, H, S, ld) in device memory; then dV^T += dO^T P,
+//          Dv rows.
+//      Four named barriers order the two (P written, dS written, P read,
+//      dS read); warpgroup 0 frees Q's atoms and warpgroup 1 dO's once
+//      their fragments are in registers. setmaxnreg gives the producer 24
+//      registers and the consumers 240. dK^T and dV^T stay in registers
+//      (D / 64 and Dv / 64 m64nBK accumulators) and are written at the end
+//      of each item: G = 1 into dk and dv (dK times scale), G > 1 as
+//      per-query-head partials (B, H, S, D) and (B, H, S, Dv).
+//   4. flash_bwd_dkdv_sum (G > 1 only), one block per (b, kv head, key):
+//      the group's G partials in head order, dK times scale. Bytes.
+//   5. flash_bwd_dq: dQ = dS K scale, a product over the band's keys, one
+//      block of 384 threads per (b, query head, 128-row query tile), the
+//      tiles with most keys first. The producer streams 32-key chunks of
+//      dS (128 x 32) and of K^T's halves (D x 32) by TMA through a ring of
+//      ST stages; each consumer warpgroup takes 64 rows, loads dS as its A
+//      fragments (zero outside the band, so dS entries that step 3 did not
+//      write are never read) and runs dQ in 64-wide n-tiles (the last 32
+//      wide where D rounded up to 32 is not a multiple of 64), D/64
+//      m64n64 accumulators a thread; the fragments of the next chunk load
+//      while the last chunk's products run, in two register sets named at
+//      compile time (the loop is unrolled by two).
+// Tiles, widths and budgets (f32 tiles in 32-column atoms as TMA writes
+// them with 128-byte swizzle; shared memory of step 3 = K and V halves 4
+// BK HD 4 bytes + ST stages of Q and dO 2 x 64 HD 4 + P^T and dS^T halves
+// 4 x BK 64 4):
+//   HD = max(D, Dv) <= 64:  BK = 64, ST = 2: 192 KiB; dQ ring of 4 stages
+//     of 32 KiB;
+//   HD <= 128: BK = 32, ST = 2: 224 KiB; dQ 4 stages of 48 KiB;
+//   HD <= 256: BK = 16, ST = 1: 208 KiB (one Q and dO stage: 128 KiB of
+//     the 227); dQ 2 stages of 80 KiB.
+// Registers of a consumer thread: BK / 2 for S or dP, (D / 64) BK / 2 for
+// dK^T (HD = 256: 32), 64 for two sets of A fragments; dQ: 128 at D = 256.
+// ptxas reports every instantiation at the 168 registers it launches
+// with and no spills; none of the main widths' products is serialized.
+// The products run at these widths: S D deep and dP Dv deep rounded up to
+// the k-step of 8, dK^T and dV^T D and Dv rows rounded up to 64, dQ D
+// wide rounded up to 32 (flash_attention.bwd_product_widths).
 // No atomics: every output and scratch element is written once by one
 // thread, and every sum runs in a fixed order, so two launches give the
-// same bits. Rows and keys past S are zero-filled and masked (any S), kv
-// head h / (H / Hk) is read in place (GQA), Dv may differ from D, and
-// every tensor is read and written through its batch, head and sequence
-// strides with a unit last stride (the wrapper checks).
-// Left for later: wgmma with TMA-fed tiles and a producer warp (at HD =
-// 256 the kernels sit near 10 % of the 3xTF32 bound, and neither a third
-// fewer operand splits, S and dP on separate warps, nor 16 warps a block
-// moved them); splitting the tiles that stay in shared memory (K, V; Q,
-// dO) once instead of on every use, which needs the smem the double
-// buffers take; and bf16 inputs with f32 sums.
+// same bits. Rows and keys past S read as zero (TMA) and are masked (any
+// S), kv head h / (H / Hk) is read in place (GQA), Dv may differ from D
+// (multiples of 4), and q and dout are read through their strides by TMA:
+// 16-byte aligned pointers and batch, head and sequence strides (the
+// wrapper checks, and ops copies a dout that breaks the rule).
+// What bounds it (tools/flash_bwd_stages.py: variant builds of this file
+// timed on the H100 at gemma3-1b's shapes): not the streaming of Q and dO
+// from L2 (taking it out saves 1-3 % of step 3); taking out the products
+// and the A fragments that feed them saves 42 %. At HD = 256 the key tile
+// is 16 keys, so every product of step 3 is m64n16k8; the rest of the
+// time is the warpgroups' handoffs, the P and dS passes and tile waits.
+// Left for later: a wider key tile at HD = 256 (the shared memory holds
+// one Q and dO stage beside 16 keys of K and V halves); overlapping the
+// two warpgroups' softmax and dS passes with the other's products (they
+// wait on each other once a step); dQ fused into step 3 in a fixed key
+// order, which would drop the dS round trip through device memory (at
+// most 1 GiB a launch: the wrapper runs a larger problem in slabs of
+// batches or kv-head groups); the pre-pass's 7 x the bytes of K and V
+// (0.19 ms of MLA's 2 ms).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "tf32_mma.cuh"
+#include <cstdio>
+
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr int kMaxD = 256;
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBQ = 32;  // query rows a tile
-constexpr int kBK = 32;  // keys a tile (the same: tiles share one layout)
-constexpr int kLdP = 32 + 4;  // row stride of the P and dS tiles
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 384;  // the producer warpgroup, then two consumers
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 24 * 128 + 240 * 256 <= 65,536
+
+// what the last failed call failed at, for the wrapper's message
+char g_failure[256] = "";
+
+// Returns err after noting `what` where it is an error.
+int noted(int err, const char* what) {
+  if (err) snprintf(g_failure, sizeof g_failure, "%s", what);
+  return err;
+}
 
 enum { kQ = 0, kK, kV, kO, kDO, kDQ, kDK, kDV, kTensors };
 
@@ -101,9 +162,13 @@ struct Params {
   float* dv;
   const float* lse;  // (B, H, S), contiguous, log2 domain
   float* delta;      // (B, H, S), contiguous
+  float* kv;         // (B, Hk, 2, S, D8): K's big and small halves
+  float* vv;         // (B, Hk, 2, S, Dv8)
+  float* kt;         // (B, Hk, 2, D, ld): K^T's halves
+  float* ds;         // (B, H, S, ld): dS
   float* dkp;        // (B, H, S, D) contiguous partials, or null (G = 1)
   float* dvp;        // (B, H, S, Dv) contiguous partials, or null
-  int B, H, group, S, D, Dv;
+  int B, H, group, S, D, Dv, ld;
   long long st[kTensors][3];  // batch, head and sequence strides
   float scale;
   int causal;
@@ -135,140 +200,46 @@ __device__ __forceinline__ const float* at(const Params& p, const float* t,
   return t + b * p.st[which][0] + h * p.st[which][1];
 }
 
-// Shared-memory layout, in floats: 32-row tiles of Q, K, V, dO with rows
-// of HD + 8 (the two that a block streams, double-buffered: 6 tiles), a
-// 32 x 32 tile of P and one of dS with rows of kLdP, and the streamed
-// rows' lse and delta (double-buffered).
-template <int HD>
-struct Tiles {
-  static constexpr int kLd = HD + 8;
-  static constexpr int kTile = kBQ * kLd;
-  static constexpr int kPS = kBQ * kLdP;
-  static constexpr int kRows = 2 * kBQ;
-  static constexpr size_t kDkdv =
-      sizeof(float) * (6 * kTile + 2 * kPS + 2 * kRows);
-  static constexpr size_t kDq =
-      sizeof(float) * (6 * kTile + kPS + kRows);
-};
-
-// 4 bytes global -> shared without a register, zero-filled when !ok: any
-// alignment of the source works.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// byte offset of (row, col) in an f32 tile of R rows as TMA lands it:
+// 32-column atoms of R rows x 128 bytes, 128-byte swizzle
+template <int R>
+__device__ __forceinline__ uint32_t tile_at(int row, int col) {
+  return static_cast<uint32_t>((col / 32) * (R * 128)) +
+         swizzle128(row, (col % 32) * 4);
 }
 
-// Starts copying rows [r0, r0 + 32) of a (S, n) slice with row stride ss
-// into a [32][HD + 8] tile; rows past S and columns past n become zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* tile, const float* base,
-                                          long long ss, int r0, int S,
-                                          int n) {
-#pragma unroll 8
-  for (int e = threadIdx.x; e < 32 * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD, row = r0 + r;
-    const bool ok = row < S && c < n;
-    cp_async4(tile + r * (HD + 8) + c, ok ? base + row * ss + c : base, ok);
-  }
+__device__ __forceinline__ float lds(const unsigned char* sm, uint32_t off) {
+  return *reinterpret_cast<const float*>(sm + off);
+}
+__device__ __forceinline__ float2 lds2(const unsigned char* sm,
+                                       uint32_t off) {
+  return *reinterpret_cast<const float2*>(sm + off);
+}
+__device__ __forceinline__ void sts(unsigned char* sm, uint32_t off,
+                                    uint32_t x) {
+  *reinterpret_cast<uint32_t*>(sm + off) = x;
 }
 
-// Starts copying rows [q0, q0 + 32) of lse and delta into rowv.
-__device__ __forceinline__ void load_rows(const Params& p, float* rowv,
-                                          long long bh, int q0) {
-  const int t = threadIdx.x;
-  if (t < kBQ) {
-    const int i = q0 + t;
-    const long long at_i = bh * p.S + min(i, p.S - 1);
-    cp_async4(rowv + t, p.lse + at_i, i < p.S);
-    cp_async4(rowv + kBQ + t, p.delta + at_i, i < p.S);
-  }
-}
-
-// One m16n8k8 step of c += A B^T where both are row-major tiles with row
-// stride LD over the inner index: a at the lane's A row g, b at its B row
-// g, both at column 2t of the step. The inner index runs permuted within
-// the step's 8 (fragment index t reads column 2t, t + 4 reads 2t + 1), the
-// same for both operands, so each fragment is one float2 read.
-template <int LD>
-__device__ __forceinline__ void nt_step(float (&c)[4], const float* a,
-                                        const float* b) {
-  const float2 x = *reinterpret_cast<const float2*>(a);           // row g
-  const float2 y = *reinterpret_cast<const float2*>(a + 8 * LD);  // g + 8
-  const float2 z = *reinterpret_cast<const float2*>(b);
-  uint32_t a_big[4], a_small[4], b_big[2], b_small[2];
-  split_tf32(x.x, a_big[0], a_small[0]);
-  split_tf32(y.x, a_big[1], a_small[1]);
-  split_tf32(x.y, a_big[2], a_small[2]);
-  split_tf32(y.y, a_big[3], a_small[3]);
-  split_tf32(z.x, b_big[0], b_small[0]);
-  split_tf32(z.y, b_big[1], b_small[1]);
-  mma_3xtf32(c, a_big, a_small, b_big, b_small);
-}
-
-// Two 16x8 tiles over the HD inner columns of [32][HD + 8] tiles: c0 =
-// A0 B0^T and c1 = A1 B1^T (S with Q, K and dP with dO, V, or their
-// transposes). Each sum runs as two chains of mma, the even and the odd
-// steps of 8, added at the end: four independent chains a warp.
-template <int HD>
-__device__ __forceinline__ void mma_nt2(float (&c0)[4], const float* a0,
-                                        const float* b0, float (&c1)[4],
-                                        const float* a1, const float* b1) {
-  float e0[4] = {0.f, 0.f, 0.f, 0.f}, o0[4] = {0.f, 0.f, 0.f, 0.f};
-  float e1[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
-  for (int kc = 0; kc < HD / 8; kc += 2) {
-    nt_step<HD + 8>(e0, a0 + kc * 8, b0 + kc * 8);
-    nt_step<HD + 8>(e1, a1 + kc * 8, b1 + kc * 8);
-    nt_step<HD + 8>(o0, a0 + kc * 8 + 8, b0 + kc * 8 + 8);
-    nt_step<HD + 8>(o1, a1 + kc * 8 + 8, b1 + kc * 8 + 8);
-  }
+// an A fragment's four values split: big[i] and small[i]
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    c0[i] = e0[i] + o0[i];
-    c1[i] = e1[i] + o1[i];
-  }
+  for (int i = 0; i < 4; ++i) tf32_split_a(x[i], big[i], small[i]);
 }
 
-// c[j] += A B for j < NT: A is 16 rows of a [32][kLdP] P or dS tile over
-// its 32 columns, a at the lane's (row g, column t); B is a [32][HD + 8]
-// tile, b at the lane's (row t, column g) of n-tile 0, n-tile j 8j columns
-// on. Natural inner order: A's reads (g, t) and (g, t + 4) fall on 32
-// banks with rows of 36, B's (t, g) and (t + 4, g) with rows of HD + 8.
-template <int NT, int LD>
-__device__ __forceinline__ void mma_nn(float (&c)[NT][4], const float* a,
-                                       const float* b) {
-#pragma unroll
-  for (int kc = 0; kc < kBQ / 8; ++kc) {
-    const float* ak = a + kc * 8;
-    uint32_t a_big[4], a_small[4];
-    split_tf32(ak[0], a_big[0], a_small[0]);
-    split_tf32(ak[8 * kLdP], a_big[1], a_small[1]);
-    split_tf32(ak[4], a_big[2], a_small[2]);
-    split_tf32(ak[8 * kLdP + 4], a_big[3], a_small[3]);
-    const float* bk = b + kc * 8 * LD;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t b_big[2], b_small[2];
-      split_tf32(bk[j * 8], b_big[0], b_small[0]);
-      split_tf32(bk[4 * LD + j * 8], b_big[1], b_small[1]);
-      mma_3xtf32(c[j], a_big, a_small, b_big, b_small);
-    }
-  }
+// Within each k-step of 8, k index i of an A fragment (lane t holds t and
+// t + 4) stands for column 2i (i < 4) or 2i - 7: a lane's two k values are
+// then one 8-byte load. A B operand is written permuted to match: column j
+// of a K-major tile goes to position kpos(j) of its group of 8.
+__device__ __forceinline__ int kpos(int j) {
+  return (j & ~7) + ((j & 1) ? 4 + (j & 7) / 2 : (j & 7) / 2);
 }
 
 // delta = rowsum(dO o O), one warp a row, lanes over the columns in a
 // fixed order and a butterfly sum.
-__global__ void __launch_bounds__(kThreads) flash_bwd_delta(Params p) {
+__global__ void __launch_bounds__(256) flash_bwd_delta(Params p) {
   const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+      static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= static_cast<long long>(p.B) * p.H * p.S) return;
   const int bh = static_cast<int>(row / p.S), i = static_cast<int>(row % p.S);
@@ -283,104 +254,53 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_delta(Params p) {
   if (lane == 0) p.delta[row] = dl;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv(Params p) {
-  using T = Tiles<HD>;
-  constexpr int kLd = T::kLd;
-  constexpr int NT = HD / 32;  // 16x8 C tiles a warp of dK, and of dV
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + T::kTile;
-  float* Qs = Vs + T::kTile;    // two buffers
-  float* dOs = Qs + 2 * T::kTile;  // two buffers
-  float* Pt = dOs + 2 * T::kTile;  // P^T: [key][query]
-  float* dSt = Pt + T::kPS;        // dS^T
-  float* rowv = dSt + T::kPS;  // the query tile's lse, then its delta; two
-  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
-  const int hk = h / p.group;
-  const int k0 = blockIdx.y * kBK, k1 = min(k0 + kBK, p.S);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  // S^T and dP^T: keys 16 mb.., queries 8 nb..; dK and dV: keys 16 mb..,
-  // columns n0 + 8 j
-  const int mb = warp / 4, nb = warp % 4, n0 = nb * (HD / 4);
-  const float scale2 = p.scale * kLog2e;
-  const float* q = at(p, p.q, kQ, b, h);
-  const float* dout = at(p, p.dout, kDO, b, h);
-  const int r_lo = row_begin(p, k0), r_hi = row_end(p, k1);
-  // the K and V tiles and the first query tile; the next query tile
-  // copies while this one computes
-  load_tile<HD>(Ks, at(p, p.k, kK, b, hk), p.st[kK][2], k0, p.S, p.D);
-  load_tile<HD>(Vs, at(p, p.v, kV, b, hk), p.st[kV][2], k0, p.S, p.Dv);
-  load_tile<HD>(Qs, q, p.st[kQ][2], r_lo, p.S, p.D);
-  load_tile<HD>(dOs, dout, p.st[kDO][2], r_lo, p.S, p.Dv);
-  load_rows(p, rowv, bh, r_lo);
-  cp_async_commit();
-  const float* k_a = Ks + (16 * mb + g) * kLd + 2 * tq;
-  const float* v_a = Vs + (16 * mb + g) * kLd + 2 * tq;
-  const float* p_a = Pt + (16 * mb + g) * kLdP + tq;
-  const float* ds_a = dSt + (16 * mb + g) * kLdP + tq;
-  float acc_k[NT][4], acc_v[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.f;
-  for (int q0 = r_lo, buf = 0; q0 < r_hi; q0 += kBQ, buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // this tile is in; every warp is done with the last
-    if (q0 + kBQ < r_hi) {
-      const int nxt = buf ^ 1;
-      load_tile<HD>(Qs + nxt * T::kTile, q, p.st[kQ][2], q0 + kBQ, p.S, p.D);
-      load_tile<HD>(dOs + nxt * T::kTile, dout, p.st[kDO][2], q0 + kBQ, p.S,
-                    p.Dv);
-      load_rows(p, rowv + nxt * T::kRows, bh, q0 + kBQ);
+// K and V of keys [k0, k0 + 32) of one (b, kv head) split into big and
+// small halves (blockIdx.z 0: K, 1: V), their columns padded with zeros to
+// a multiple of 8 and permuted within each 8 (kpos); K's halves also
+// transposed, its keys permuted within each 8 and zero from S to ld.
+// 256 threads.
+__global__ void __launch_bounds__(256) flash_bwd_prep_kv(Params p) {
+  __shared__ float tile[32][33];
+  const int Hk = p.H / p.group;
+  const int k0 = blockIdx.x * 32, bhk = blockIdx.y;
+  const int b = bhk / Hk, hk = bhk - b * Hk;
+  const bool is_k = blockIdx.z == 0;
+  const int n = is_k ? p.D : p.Dv, np = (n + 7) & ~7;
+  const float* src = at(p, is_k ? p.k : p.v, is_k ? kK : kV, b, hk);
+  const long long ss = p.st[is_k ? kK : kV][2];
+  const long long half = static_cast<long long>(p.S) * np;
+  float* big = (is_k ? p.kv : p.vv) + 2 * bhk * half;
+  const long long t_half = static_cast<long long>(p.D) * p.ld;
+  float* t_big = p.kt + 2 * bhk * t_half;
+  for (int c0 = 0; c0 < np; c0 += 32) {
+    for (int e = threadIdx.x; e < 32 * 32; e += 256) {
+      const int r = e / 32, c = e % 32, key = k0 + r, col = c0 + c;
+      const float x = key < p.S && col < n ? src[key * ss + col] : 0.f;
+      if (key < p.S && col < np) {
+        big[key * np + kpos(col)] = __uint_as_float(tf32_big(x));
+        big[half + key * np + kpos(col)] = __uint_as_float(tf32_small(x));
+      }
+      tile[r][c] = x;
     }
-    cp_async_commit();
-    const float* Qb = Qs + buf * T::kTile;
-    const float* dOb = dOs + buf * T::kTile;
-    const float* rows = rowv + buf * T::kRows;
-    float s[4], dp[4];
-    mma_nt2<HD>(s, k_a, Qb + (8 * nb + g) * kLd + 2 * tq, dp, v_a,
-                dOb + (8 * nb + g) * kLd + 2 * tq);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 16 * mb + g + 8 * (i / 2);  // key in the tile
-      const int c = 8 * nb + 2 * tq + i % 2;    // query in the tile
-      const float pr = allowed(p, q0 + c, k0 + r)
-                           ? exp2f(s[i] * scale2 - rows[c])
-                           : 0.f;
-      Pt[r * kLdP + c] = pr;
-      dSt[r * kLdP + c] = pr * (dp[i] - rows[kBQ + c]);
+    if (!is_k) continue;
+    __syncthreads();
+    for (int e = threadIdx.x; e < 32 * 32; e += 256) {
+      const int r = e / 32, c = e % 32, col = c0 + r;
+      const int at_key = k0 + kpos(c);
+      if (col < n && at_key < p.ld) {
+        const float x = tile[c][r];
+        t_big[col * p.ld + at_key] = __uint_as_float(tf32_big(x));
+        t_big[t_half + col * p.ld + at_key] =
+            __uint_as_float(tf32_small(x));
+      }
     }
     __syncthreads();
-    mma_nn<NT, kLd>(acc_v, p_a, dOb + tq * kLd + n0 + g);
-    mma_nn<NT, kLd>(acc_k, ds_a, Qb + tq * kLd + n0 + g);
   }
-  // G = 1: dK (scaled) and dV into place; G > 1: this query head's partials
-  const bool direct = p.dkp == nullptr;
-  const long long bhl = bh;
-  float* dk = direct ? p.dk + b * p.st[kDK][0] + hk * p.st[kDK][1]
-                     : p.dkp + bhl * p.S * p.D;
-  float* dv = direct ? p.dv + b * p.st[kDV][0] + hk * p.st[kDV][1]
-                     : p.dvp + bhl * p.S * p.Dv;
-  const long long dk_ss = direct ? p.st[kDK][2] : p.D;
-  const long long dv_ss = direct ? p.st[kDV][2] : p.Dv;
-  const float k_scale = direct ? p.scale : 1.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + 16 * mb + g + 8 * (i / 2);
-      const int col = n0 + 8 * j + 2 * tq + i % 2;
-      if (key >= p.S) continue;
-      if (col < p.D) dk[key * dk_ss + col] = acc_k[j][i] * k_scale;
-      if (col < p.Dv) dv[key * dv_ss + col] = acc_v[j][i];
-    }
 }
 
 // dK and dV of kv head hk, key j: the sum of its group's G partials in
 // head order; dK times scale.
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_sum(Params p) {
+__global__ void __launch_bounds__(256) flash_bwd_dkdv_sum(Params p) {
   const int Hk = p.H / p.group;
   const int bhk = blockIdx.x / p.S, j = blockIdx.x - bhk * p.S;
   const int b = bhk / Hk, hk = bhk - b * Hk;
@@ -390,126 +310,657 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_sum(Params p) {
   const float* vp = p.dvp + first * p.Dv;
   float* dk = p.dk + b * p.st[kDK][0] + hk * p.st[kDK][1] + j * p.st[kDK][2];
   float* dv = p.dv + b * p.st[kDV][0] + hk * p.st[kDV][1] + j * p.st[kDV][2];
-  for (int c = threadIdx.x; c < p.D; c += kThreads) {
+  for (int c = threadIdx.x; c < p.D; c += 256) {
     float acc = 0.f;
     for (int gi = 0; gi < p.group; ++gi) acc += kp[gi * head * p.D + c];
     dk[c] = acc * p.scale;
   }
-  for (int c = threadIdx.x; c < p.Dv; c += kThreads) {
+  for (int c = threadIdx.x; c < p.Dv; c += 256) {
     float acc = 0.f;
     for (int gi = 0; gi < p.group; ++gi) acc += vp[gi * head * p.Dv + c];
     dv[c] = acc;
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(Params p) {
-  using T = Tiles<HD>;
-  constexpr int kLd = T::kLd;
-  constexpr int NT = HD / 32;  // 16x8 C tiles a warp of dQ
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + T::kTile;
-  float* Ks = dOs + T::kTile;      // two buffers
-  float* Vs = Ks + 2 * T::kTile;   // two buffers
-  float* dSs = Vs + 2 * T::kTile;  // dS: [query][key]
-  float* rowv = dSs + T::kPS;  // the query tile's lse, then its delta
+// ---------------------------------------------------------------------------
+// dK and dV: flash_bwd_dkdv
+// ---------------------------------------------------------------------------
+
+namespace dkdv {
+
+constexpr int kBQ = 64;  // query rows a step
+// named barriers between the consumers (256 threads)
+enum { kPWritten = 1, kDsWritten, kPRead, kDsRead };
+
+// Byte offsets from the 1024-aligned base: K's and V's big and small
+// tiles (BK rows), ST stages of Q and of dO (64 rows), P^T's and dS^T's
+// big and small tiles (BK rows x 64 queries), then the barriers: kv_full,
+// kv_empty, and q_full, q_empty, do_full, do_empty for each 32-column atom
+// of each stage, so that an atom reloads as soon as its last reader is
+// done.
+template <int HD, int BK, int ST>
+struct Smem {
+  static constexpr int kAtoms = HD / 32;
+  static constexpr int kKVTile = kAtoms * BK * 128;
+  static constexpr int kXTile = kAtoms * kBQ * 128;
+  static constexpr int kGTile = 2 * BK * 128;
+  static constexpr int kKb = 0;
+  static constexpr int kKs = kKb + kKVTile;
+  static constexpr int kVb = kKs + kKVTile;
+  static constexpr int kVs = kVb + kKVTile;
+  static constexpr int kQ = kVs + kKVTile;
+  static constexpr int kDO = kQ + ST * kXTile;
+  static constexpr int kPb = kDO + ST * kXTile;
+  static constexpr int kPs = kPb + kGTile;
+  static constexpr int kSb = kPs + kGTile;
+  static constexpr int kSs = kSb + kGTile;
+  static constexpr int kBar = kSs + kGTile;
+  static constexpr size_t kBytes = 1024 + kBar + 8 * (2 + 4 * ST * kAtoms);
+  // the barriers q_full, q_empty, do_full, do_empty (which 0..3) of stage
+  // s, atom a
+  static __device__ __forceinline__ uint32_t bar(int which, int s, int a) {
+    return kBar + 8 * (2 + (which * ST + s) * kAtoms + a);
+  }
+};
+
+// c = X Y^T for one warpgroup: X its 64-row tile at x (queries x HD), Y's
+// big and small tiles at yb, ys (BK rows, columns placed by kpos), KS
+// k-steps of 8 columns (0: ks at run time). The A fragments of 4 k-steps
+// load and split while the products of the 4 before run (two register
+// sets). The 4 k-steps of a chunk are one atom of X, waited for on its
+// full barrier (full + 8 atom, phase parity).
+template <int HD, int BK, int KS>
+__device__ __forceinline__ void product_nt(float (&c)[BK / 2],
+                                           const unsigned char* sm,
+                                           uint32_t base, uint32_t x,
+                                           uint32_t yb, uint32_t ys, int ks,
+                                           uint32_t full, int parity,
+                                           int warp, int lane) {
+  constexpr int kMax = KS > 0 ? KS : HD / 8;
+  const int n = KS > 0 ? KS : ks;
+  const int r0 = 16 * warp + lane / 4, t = lane % 4;
+  uint32_t fb[2][4][4], fs[2][4][4];
+#pragma unroll
+  for (int ch = 0; ch < (kMax + 3) / 4; ++ch) {
+    uint32_t(&ab)[4][4] = fb[ch & 1];
+    uint32_t(&as)[4][4] = fs[ch & 1];
+    if (ch >= 2) wgmma_wait<1>();
+    if (4 * ch < n) mbar_wait(full + 8 * ch, parity);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kk = 4 * ch + j, c0 = 8 * kk + 2 * t;  // k indices t, t + 4
+      if (kk < kMax && kk < n) {
+        const float2 lo = lds2(sm, x + tile_at<kBQ>(r0, c0));
+        const float2 hi = lds2(sm, x + tile_at<kBQ>(r0 + 8, c0));
+        const float xv[4] = {lo.x, hi.x, lo.y, hi.y};
+        split4(xv, ab[j], as[j]);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kk = 4 * ch + j;
+      if (kk < kMax && kk < n) {
+        const uint32_t off = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+        wgmma_3xtf32(c, ab[j], as[j], desc_sw128(base + yb + off),
+                     desc_sw128(base + ys + off), kk > 0);
+      }
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(c);
+}
+
+// c[m] += X^T G^T for the m-tiles m < mt (MT: their count, 0 = mt at run
+// time, up to HD / 64): X^T's rows are X's columns 64 m.. (zero past the
+// loaded columns), its k the tile's 64 queries, read down X; row g of a
+// warp's 16 is column 2 g of its 16, row g + 8 column 2 g + 1, so that a
+// lane's two rows are one 8-byte load (the epilogue maps them back); G the
+// big and
+// small tiles at gb, gs (BK rows x 64 queries). A chunk is one m-tile's
+// 4 k-steps; the next loads while it runs. Once the fragments of an
+// m-tile are in registers, its two atoms of X are free (arrivals on empty
+// + 8 atom).
+template <int HD, int BK, int MT>
+__device__ __forceinline__ void product_tn(float (&c)[HD / 64][BK / 2],
+                                           const unsigned char* sm,
+                                           uint32_t base, uint32_t x,
+                                           uint32_t gb, uint32_t gs, int mt,
+                                           int loaded, uint32_t empty,
+                                           int warp, int lane) {
+  constexpr int kMax = MT > 0 ? MT : HD / 64;
+  const int n = MT > 0 ? MT : mt;
+  const int d0 = 16 * warp + 2 * (lane / 4), t = lane % 4;
+  uint32_t fb[2][4][4], fs[2][4][4];
+#pragma unroll
+  for (int ch = 0; ch < 2 * kMax; ++ch) {
+    const int m = ch / 2, hh = ch % 2;
+    uint32_t(&ab)[4][4] = fb[ch & 1];
+    uint32_t(&as)[4][4] = fs[ch & 1];
+    if (ch >= 2 && m < n) wgmma_wait<1>();
+    if (m < n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q0 = 8 * (4 * hh + j) + t, d = 64 * m + d0;
+        const bool ok = d < loaded;  // d and d + 1
+        const float2 lo = ok ? lds2(sm, x + tile_at<kBQ>(q0, d))
+                             : make_float2(0.f, 0.f);
+        const float2 hi = ok ? lds2(sm, x + tile_at<kBQ>(q0 + 4, d))
+                             : make_float2(0.f, 0.f);
+        const float xv[4] = {lo.x, lo.y, hi.x, hi.y};
+        split4(xv, ab[j], as[j]);
+      }
+      if (hh == 1 && lane == 0)
+        for (int a = 2 * m; a < 2 * m + 2 && 32 * a < loaded; ++a)
+          mbar_arrive(empty + 8 * a);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t off = hh * (BK * 128) + j * 32;
+        wgmma_3xtf32(c[m], ab[j], as[j], desc_sw128(base + gb + off),
+                     desc_sw128(base + gs + off), 1);
+      }
+      wgmma_commit();
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < HD / 64; ++m) fence_regs(c[m]);
+}
+
+// One work item: the key tile at k0 of batch b, query head h (kv head
+// hk), and the n_tiles 64-row query tiles from q_first that its band
+// reaches. Items run key tile by key tile, so that blocks take the
+// longest walks of the causal band first.
+struct Item {
+  int b, h, hk, k0, q_first, n_tiles;
+};
+
+template <int BK>
+__device__ __forceinline__ Item item_of(const Params& p, int u) {
+  const int bhs = p.B * p.H, kt = u / bhs, bh = u - kt * bhs;
+  Item x;
+  x.b = bh / p.H;
+  x.h = bh - x.b * p.H;
+  x.hk = x.h / p.group;
+  x.k0 = kt * BK;
+  x.q_first = row_begin(p, x.k0) / kBQ * kBQ;
+  x.n_tiles =
+      (row_end(p, min(x.k0 + BK, p.S)) - x.q_first + kBQ - 1) / kBQ;
+  return x;
+}
+
+// One consumer warpgroup over one item's query tiles; it0 counts the
+// tiles that went through the ring before them, last says the item is the
+// block's last. ROLE 0: X = Q, Y = K, S -> P, then dK^T += Q^T dS; ROLE 1:
+// X = dO, Y = V, dP -> dS, then dV^T += dO^T P. KS: k-steps of X's width
+// (D or Dv), 0 = at run time. K and V are freed (kv_empty, where not 0)
+// once the last tile's S and dP have read them.
+template <int HD, int BK, int ST, int ROLE, int KS>
+__device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
+                                        uint32_t base, const Item& item,
+                                        int it0, bool last,
+                                        uint32_t kv_empty) {
+  const int b = item.b, h = item.h, q_first = item.q_first;
+  const int n_tiles = item.n_tiles, k0 = item.k0;
+  using L = Smem<HD, BK, ST>;
+  constexpr int MT = KS > 0 ? (KS + 7) / 8 : 0;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int width = ROLE == 0 ? p.D : p.Dv;
+  const int ks = (width + 7) / 8, mt = (width + 63) / 64;
+  const int loaded = (width + 31) / 32 * 32;  // columns TMA brings
+  // this warpgroup's full and empty barriers of stage s, atom 0
+  auto full = [&](int s) { return base + L::bar(ROLE == 0 ? 0 : 2, s, 0); };
+  auto empty = [&](int s) { return base + L::bar(ROLE == 0 ? 1 : 3, s, 0); };
+  const uint32_t x0 = ROLE == 0 ? L::kQ : L::kDO;
+  const uint32_t yb = ROLE == 0 ? L::kKb : L::kVb;
+  const uint32_t ys = ROLE == 0 ? L::kKs : L::kVs;
+  // this warpgroup writes one of P^T, dS^T and reads the other as its B
+  const uint32_t wb = ROLE == 0 ? L::kPb : L::kSb;
+  const uint32_t ws = ROLE == 0 ? L::kPs : L::kSs;
+  const uint32_t gb = ROLE == 0 ? L::kSb : L::kPb;
+  const uint32_t gs = ROLE == 0 ? L::kSs : L::kPs;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  const float* rowv = (ROLE == 0 ? p.lse : p.delta) + bh * p.S;
+  const float scale2 = p.scale * kLog2e;
+
+  float acc[HD / 64][BK / 2];
+#pragma unroll
+  for (int m = 0; m < HD / 64; ++m)
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) acc[m][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int it = it0 + i, s = it % ST, q0 = q_first + i * kBQ;
+    const uint32_t x = x0 + s * L::kXTile;
+    float rv[2];  // lse (ROLE 0) or delta (ROLE 1) of rows g, g + 8
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      rv[r] = row < p.S ? rowv[row] : 0.f;
+    }
+    float sc[BK / 2];
+    product_nt<HD, BK, KS>(sc, sm, base, x, yb, ys, ks, full(s),
+                           (it / ST) & 1, warp, lane);
+    if (kv_empty != 0 && i + 1 == n_tiles && lane == 0)
+      mbar_arrive(kv_empty);
+    // the other warpgroup is done with the tile this one writes (from the
+    // block's second tile on, across items too)
+    if (ROLE == 0) {
+      if (it > 0) named_sync(kPRead, 256);
+    } else {
+      named_sync(kPWritten, 256);
+      if (it > 0) named_sync(kDsRead, 256);
+    }
+    // P (ROLE 0) or dS (ROLE 1) of each score, into the written tiles
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int key = 8 * (e / 4) + 2 * t + e % 2;  // in the tile
+      const int ql = 16 * warp + g + 8 * ((e / 2) % 2);
+      const uint32_t off = tile_at<BK>(key, ql);
+      float val;
+      if (ROLE == 0) {
+        val = allowed(p, q0 + ql, k0 + key)
+                  ? exp2f(sc[e] * scale2 - rv[(e / 2) % 2])
+                  : 0.f;
+      } else {
+        const float pr = lds(sm, L::kPb + off) + lds(sm, L::kPs + off);
+        val = pr * (sc[e] - rv[(e / 2) % 2]);
+        const int row = q0 + ql, col = k0 + key;
+        if (row < p.S && col < p.S)
+          p.ds[(bh * p.S + row) * p.ld + col] = val;
+      }
+      sts(sm, wb + off, tf32_big(val));
+      sts(sm, ws + off, tf32_small(val));
+    }
+    fence_async_shared();
+    if (ROLE == 0) {
+      named_arrive(kPWritten, 256);
+      named_sync(kDsWritten, 256);
+    } else {
+      named_arrive(kDsWritten, 256);
+    }
+    product_tn<HD, BK, MT>(acc, sm, base, x, gb, gs, mt, loaded, empty(s),
+                           warp, lane);
+    if (i + 1 < n_tiles || !last)
+      named_arrive(ROLE == 0 ? kDsRead : kPRead, 256);
+  }
+
+  // dK^T (times scale) or dV^T: G = 1 into place, G > 1 this query head's
+  // partials
+  const bool direct = p.dkp == nullptr;
+  const int hk = h / p.group;
+  float* out;
+  long long ss;
+  if (ROLE == 0) {
+    out = direct ? p.dk + b * p.st[kDK][0] + hk * p.st[kDK][1]
+                 : p.dkp + bh * p.S * p.D;
+    ss = direct ? p.st[kDK][2] : p.D;
+  } else {
+    out = direct ? p.dv + b * p.st[kDV][0] + hk * p.st[kDV][1]
+                 : p.dvp + bh * p.S * p.Dv;
+    ss = direct ? p.st[kDV][2] : p.Dv;
+  }
+  const float mult = ROLE == 0 && direct ? p.scale : 1.f;
+#pragma unroll
+  for (int m = 0; m < HD / 64; ++m)
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int d = 64 * m + 16 * warp + 2 * g + (e / 2) % 2;
+      const int key = k0 + 8 * (e / 4) + 2 * t + e % 2;
+      if (m < mt && d < width && key < p.S)
+        out[key * ss + d] = acc[m][e] * mult;
+    }
+}
+
+// KD, KV: k-steps of D and Dv (0: at run time). Up to HD = 128 a
+// persistent block takes items blockIdx.x, + gridDim.x, ...; the ring of Q
+// and dO tiles and the barriers' phases run on across items. At HD = 256 a
+// block takes item blockIdx.x alone (see launch).
+template <int HD, int BK, int ST, int KD, int KV>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, Params p) {
+  using L = Smem<HD, BK, ST>;
+  constexpr bool kPersistent = HD <= 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sm = smem_raw + (base - raw);
+  const uint32_t kv_full = base + L::kBar, kv_empty = kv_full + 8;
+  auto bar = [&](int which, int s, int a) {
+    return base + L::bar(which, s, a);
+  };
+  const int items = kPersistent ? p.B * p.H * ((p.S + BK - 1) / BK)
+                                : static_cast<int>(blockIdx.x) + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 8);  // lane 0 of each consumer warp
+    for (int s = 0; s < ST; ++s)
+      for (int a = 0; a < L::kAtoms; ++a) {
+        mbar_init(bar(0, s, a), 1);
+        mbar_init(bar(1, s, a), 4);  // lane 0 of each warp of warpgroup 0
+        mbar_init(bar(2, s, a), 1);
+        mbar_init(bar(3, s, a), 4);  // ... of warpgroup 1
+      }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&tq);
+      prefetch_map(&tdo);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      const int k_atoms = (p.D + 31) / 32, v_atoms = (p.Dv + 31) / 32;
+      int it = 0, round = 0;  // tiles through the ring, items
+      for (int u = blockIdx.x; u < items; u += gridDim.x, ++round) {
+        const Item x = item_of<BK>(p, u);
+        mbar_wait(kv_empty, (round & 1) ^ 1);
+        mbar_expect_tx(kv_full, 2 * (k_atoms + v_atoms) * BK * 128);
+        for (int a = 0; a < k_atoms; ++a) {
+          tma_load(base + L::kKb + a * BK * 128, &tk, kv_full, 32 * a, x.k0,
+                   2 * x.hk, x.b);
+          tma_load(base + L::kKs + a * BK * 128, &tk, kv_full, 32 * a, x.k0,
+                   2 * x.hk + 1, x.b);
+        }
+        for (int a = 0; a < v_atoms; ++a) {
+          tma_load(base + L::kVb + a * BK * 128, &tv, kv_full, 32 * a, x.k0,
+                   2 * x.hk, x.b);
+          tma_load(base + L::kVs + a * BK * 128, &tv, kv_full, 32 * a, x.k0,
+                   2 * x.hk + 1, x.b);
+        }
+        for (int i = 0; i < x.n_tiles; ++i, ++it) {
+          const int s = it % ST, parity = ((it / ST) & 1) ^ 1;
+          const int q0 = x.q_first + i * kBQ;
+          for (int a = 0; a < k_atoms || a < v_atoms; ++a) {
+            if (a < k_atoms) {
+              mbar_wait(bar(1, s, a), parity);
+              mbar_expect_tx(bar(0, s, a), kBQ * 128);
+              tma_load(base + L::kQ + s * L::kXTile + a * kBQ * 128, &tq,
+                       bar(0, s, a), 32 * a, q0, x.h, x.b);
+            }
+            if (a < v_atoms) {
+              mbar_wait(bar(3, s, a), parity);
+              mbar_expect_tx(bar(2, s, a), kBQ * 128);
+              tma_load(base + L::kDO + s * L::kXTile + a * kBQ * 128, &tdo,
+                       bar(2, s, a), 32 * a, q0, x.h, x.b);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    if constexpr (kPersistent) {
+      int it = 0, round = 0;
+      for (int u = blockIdx.x; u < items; u += gridDim.x, ++round) {
+        const Item x = item_of<BK>(p, u);
+        const bool last = u + static_cast<int>(gridDim.x) >= items;
+        mbar_wait(kv_full, round & 1);
+        if (threadIdx.x < 256)
+          consume<HD, BK, ST, 0, KD>(p, sm, base, x, it, last, kv_empty);
+        else
+          consume<HD, BK, ST, 1, KV>(p, sm, base, x, it, last, kv_empty);
+        it += x.n_tiles;
+      }
+    } else {
+      const Item x = item_of<BK>(p, blockIdx.x);
+      mbar_wait(kv_full, 0);
+      if (threadIdx.x < 256)
+        consume<HD, BK, ST, 0, KD>(p, sm, base, x, 0, true, 0);
+      else
+        consume<HD, BK, ST, 1, KV>(p, sm, base, x, 0, true, 0);
+    }
+  }
+}
+
+}  // namespace dkdv
+
+// ---------------------------------------------------------------------------
+// dQ: flash_bwd_dq
+// ---------------------------------------------------------------------------
+
+namespace dq {
+
+constexpr int kBQ = 128;  // query rows a block, 64 a consumer warpgroup
+
+// Stage s at s * kStage: dS (128 rows x 32 keys), then K^T's big and small
+// tiles (HD rows x 32 keys); then the full and empty barriers.
+template <int HD, int ST>
+struct Smem {
+  static constexpr int kDs = kBQ * 128;
+  static constexpr int kKt = HD * 128;
+  static constexpr int kStage = kDs + 2 * kKt;
+  static constexpr int kBar = ST * kStage;
+  static constexpr size_t kBytes = 1024 + kBar + 8 * 2 * ST;
+};
+
+// W: D rounded up to 32 (0: at run time). dQ runs in n-tiles of 64
+// columns, the last 32 wide where W is not a multiple of 64.
+template <int HD, int ST, int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq(const __grid_constant__ CUtensorMap tds,
+                 const __grid_constant__ CUtensorMap tkt, Params p) {
+  using L = Smem<HD, ST>;
+  constexpr int kNT = W > 0 ? (W + 63) / 64 : HD / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sm = smem_raw + (base - raw);
+  auto full = [&](int s) { return base + L::kBar + 8 * s; };
+  auto empty = [&](int s) { return base + L::kBar + 8 * (ST + s); };
   const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H;
   const int hk = h / p.group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ, q1 = min(q0 + kBQ, p.S);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tq = lane % 4;
-  // S and dP: queries 16 mb.., keys 8 nb..; dQ: queries 16 mb.., columns
-  // n0 + 8 j
-  const int mb = warp / 4, nb = warp % 4, n0 = nb * (HD / 4);
-  const float scale2 = p.scale * kLog2e;
-  const float* k = at(p, p.k, kK, b, hk);
-  const float* v = at(p, p.v, kV, b, hk);
-  const int c_lo = key_begin(p, q0), c_hi = key_end(p, q1);
-  // Q, dO, their rows' lse and delta, and the first key tile; the next
-  // key tile copies while this one computes
-  load_tile<HD>(Qs, at(p, p.q, kQ, b, h), p.st[kQ][2], q0, p.S, p.D);
-  load_tile<HD>(dOs, at(p, p.dout, kDO, b, h), p.st[kDO][2], q0, p.S, p.Dv);
-  load_rows(p, rowv, bh, q0);
-  load_tile<HD>(Ks, k, p.st[kK][2], c_lo, p.S, p.D);
-  load_tile<HD>(Vs, v, p.st[kV][2], c_lo, p.S, p.Dv);
-  cp_async_commit();
-  const float* q_a = Qs + (16 * mb + g) * kLd + 2 * tq;
-  const float* do_a = dOs + (16 * mb + g) * kLd + 2 * tq;
-  const float* ds_a = dSs + (16 * mb + g) * kLdP + tq;
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  for (int k0 = c_lo, buf = 0; k0 < c_hi; k0 += kBK, buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // this tile is in; every warp is done with the last
-    if (k0 + kBK < c_hi) {
-      const int nxt = buf ^ 1;
-      load_tile<HD>(Ks + nxt * T::kTile, k, p.st[kK][2], k0 + kBK, p.S, p.D);
-      load_tile<HD>(Vs + nxt * T::kTile, v, p.st[kV][2], k0 + kBK, p.S,
-                    p.Dv);
+  const int c_lo = key_begin(p, q0) / 32;
+  const int n = (key_end(p, q1) + 31) / 32 - c_lo;
+  const int w = W > 0 ? W : (p.D + 31) / 32 * 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
     }
-    cp_async_commit();
-    const float* Kb = Ks + buf * T::kTile;
-    const float* Vb = Vs + buf * T::kTile;
-    float s[4], dp[4];
-    mma_nt2<HD>(s, q_a, Kb + (8 * nb + g) * kLd + 2 * tq, dp, do_a,
-                Vb + (8 * nb + g) * kLd + 2 * tq);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 16 * mb + g + 8 * (i / 2);  // query in the tile
-      const int c = 8 * nb + 2 * tq + i % 2;    // key in the tile
-      const float pr = allowed(p, q0 + r, k0 + c)
-                           ? exp2f(s[i] * scale2 - rowv[r])
-                           : 0.f;
-      dSs[r * kLdP + c] = pr * (dp[i] - rowv[kBQ + r]);
-    }
-    __syncthreads();
-    mma_nn<NT, kLd>(acc, ds_a, Kb + tq * kLd + n0 + g);
+    fence_barrier_init();
   }
-  float* dq = p.dq + b * p.st[kDQ][0] + h * p.st[kDQ][1];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 16 * mb + g + 8 * (i / 2);
-      const int col = n0 + 8 * j + 2 * tq + i % 2;
-      if (row < p.S && col < p.D)
-        dq[row * p.st[kDQ][2] + col] = acc[j][i] * p.scale;
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&tds);
+      prefetch_map(&tkt);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % ST, key0 = 32 * (c_lo + i);
+        const uint32_t stage = base + s * L::kStage;
+        mbar_wait(empty(s), ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(full(s), L::kDs + 2 * w * 128);
+        tma_load(stage, &tds, full(s), key0, q0, h, b);
+        tma_load(stage + L::kDs, &tkt, full(s), key0, 0, 2 * hk, b);
+        tma_load(stage + L::kDs + L::kKt, &tkt, full(s), key0, 0,
+                 2 * hk + 1, b);
+      }
     }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rl = 64 * c + 16 * warp + g;  // this lane's rows rl, rl + 8
+  const int nt = (w + 63) / 64;
+  const bool half_last = w % 64 != 0;
+  // zero sums, held in place before the products start (an accumulator
+  // written between products serializes them)
+  float acc[kNT][32];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+    fence_regs(acc[j]);
+  }
+  // one 32-key chunk: its A fragments into (ab, as), then its products;
+  // the fragments alternate between two register sets named at compile
+  // time (a set picked at run time would be copied into registers that the
+  // last chunk's products may still read)
+  auto chunk = [&](int i, uint32_t (&ab)[4][4], uint32_t (&as)[4][4]) {
+    const int s = i % ST, key0 = 32 * (c_lo + i);
+    const uint32_t stage = s * L::kStage;
+    mbar_wait(full(s), (i / ST) & 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kl = 8 * j + 2 * t;  // keys kl, kl + 1: k indices t, t + 4
+      const int qa = q0 + rl, ka = key0 + kl;
+      const float2 lo = lds2(sm, stage + tile_at<kBQ>(rl, kl));
+      const float2 hi = lds2(sm, stage + tile_at<kBQ>(rl + 8, kl));
+      const float xv[4] = {allowed(p, qa, ka) ? lo.x : 0.f,
+                           allowed(p, qa + 8, ka) ? hi.x : 0.f,
+                           allowed(p, qa, ka + 1) ? lo.y : 0.f,
+                           allowed(p, qa + 8, ka + 1) ? hi.y : 0.f};
+      split4(xv, ab[j], as[j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int m = 0; m < kNT; ++m) {
+        if (W == 0 && m >= nt) continue;
+        const uint32_t off = stage + L::kDs + m * 64 * 128 + j * 32;
+        const uint64_t bb = desc_sw128(base + off);
+        const uint64_t bs = desc_sw128(base + off + L::kKt);
+        if (m == kNT - 1 && (W > 0 ? W % 64 != 0 : false))
+          wgmma_3xtf32(reinterpret_cast<float(&)[16]>(acc[m]), ab[j], as[j],
+                       bb, bs, 1);
+        else if (W == 0 && m == nt - 1 && half_last)
+          wgmma_3xtf32(reinterpret_cast<float(&)[16]>(acc[m]), ab[j], as[j],
+                       bb, bs, 1);
+        else
+          wgmma_3xtf32(acc[m], ab[j], as[j], bb, bs, 1);
+      }
+    wgmma_commit();
+    if (i > 0) {  // the last chunk's products are done: free its stage
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(empty((i - 1) % ST));
+    }
+  };
+  uint32_t fb0[4][4], fs0[4][4], fb1[4][4], fs1[4][4];
+  int i = 0;
+  for (; i + 1 < n; i += 2) {
+    chunk(i, fb0, fs0);
+    chunk(i + 1, fb1, fs1);
+  }
+  if (i < n) chunk(i, fb0, fs0);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) fence_regs(acc[j]);
+  float* dq = p.dq + b * p.st[kDQ][0] + h * p.st[kDQ][1];
+  const long long ss = p.st[kDQ][2];
+#pragma unroll
+  for (int m = 0; m < kNT; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + rl + 8 * r, col = 64 * m + 8 * j + 2 * t;
+        if (row < p.S && col < p.D)
+          *reinterpret_cast<float2*>(dq + row * ss + col) =
+              make_float2(acc[m][4 * j + 2 * r] * p.scale,
+                          acc[m][4 * j + 2 * r + 1] * p.scale);
+      }
 }
 
-int launch_one(void (*kernel)(Params), size_t smem, dim3 grid,
-               const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+}  // namespace dq
+
+int launch_one(void (*kernel)(Params), dim3 grid, const Params& p,
+               cudaStream_t stream) {
+  kernel<<<grid, 256, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
+// The five kernels of one backward (the group sum only where G > 1): HD
+// the tiles' head width, BK keys a dK/dV block, ST and DST the rings'
+// stages; KD, KV the k-steps of D and Dv and W the dQ width, each 0 where
+// read at run time.
+template <int HD, int BK, int ST, int DST, int KD, int KV, int W>
 int launch(const Params& p, cudaStream_t stream) {
-  const int q_tiles = (p.S + kBQ - 1) / kBQ, k_tiles = (p.S + kBK - 1) / kBK;
+  const int Hk = p.H / p.group;
+  // the two passes that need no tensor map first: the card runs them while
+  // the maps are encoded
   const long long rows = static_cast<long long>(p.B) * p.H * p.S;
-  int err = launch_one(flash_bwd_delta, 0,
-                       dim3(static_cast<unsigned>((rows + kWarps - 1) /
-                                                  kWarps)),
-                       p, stream);
-  if (err) return err;
-  err = launch_one(flash_bwd_dkdv<HD>, Tiles<HD>::kDkdv,
-                   dim3(p.B * p.H, k_tiles), p, stream);
-  if (err) return err;
+  int err = launch_one(flash_bwd_delta,
+                       dim3(static_cast<unsigned>((rows + 7) / 8)), p, stream);
+  if (err) return noted(err, "flash_bwd_delta launch");
+  err = launch_one(flash_bwd_prep_kv, dim3((p.S + 31) / 32, p.B * Hk, 2), p,
+                   stream);
+  if (err) return noted(err, "flash_bwd_prep_kv launch");
+  CUtensorMap tq, tdo, tk, tv, tds, tkt;
+  // K's and V's halves are (D | Dv) rounded up to 8 wide
+  const int dp = (p.D + 7) & ~7, dvp = (p.Dv + 7) & ~7;
+  const long long s_d = 4ll * p.S * dp, s_dv = 4ll * p.S * dvp;
+  const int w = (p.D + 31) / 32 * 32;
+  if ((err = make_map(&tq, p.q, p.D, p.S, p.H, p.B, 4 * p.st[kQ][2],
+                      4 * p.st[kQ][1], 4 * p.st[kQ][0], dkdv::kBQ, true)))
+    return noted(err, "the tensor map of q");
+  if ((err = make_map(&tdo, p.dout, p.Dv, p.S, p.H, p.B, 4 * p.st[kDO][2],
+                      4 * p.st[kDO][1], 4 * p.st[kDO][0], dkdv::kBQ, true)))
+    return noted(err, "the tensor map of dout");
+  if ((err = make_map(&tk, p.kv, dp, p.S, 2 * Hk, p.B, 4ll * dp, s_d,
+                      2 * Hk * s_d, BK, true)))
+    return noted(err, "the tensor map of K's halves");
+  if ((err = make_map(&tv, p.vv, dvp, p.S, 2 * Hk, p.B, 4ll * dvp, s_dv,
+                      2 * Hk * s_dv, BK, true)))
+    return noted(err, "the tensor map of V's halves");
+  if ((err = make_map(&tds, p.ds, p.S, p.S, p.H, p.B, 4ll * p.ld,
+                      4ll * p.S * p.ld, 4ll * p.H * p.S * p.ld, dq::kBQ,
+                      true)))
+    return noted(err, "the tensor map of dS");
+  if ((err = make_map(&tkt, p.kt, p.ld, p.D, 2 * Hk, p.B, 4ll * p.ld,
+                      4ll * p.D * p.ld, 8ll * Hk * p.D * p.ld, w, true)))
+    return noted(err, "the tensor map of K^T's halves");
+  auto kdkdv = dkdv::flash_bwd_dkdv<HD, BK, ST, KD, KV>;
+  const size_t dkdv_smem = dkdv::Smem<HD, BK, ST>::kBytes;
+  if ((err = set_smem(kdkdv, dkdv_smem)))
+    return noted(err, "flash_bwd_dkdv's shared memory");
+  // HD <= 128: persistent, a block an SM (fewer where there are fewer
+  // items); HD = 256: a block an item, which the card deals to SMs as they
+  // free up: its items are few (at gemma3-1b's shapes 8 an SM) and unequal
+  // under the causal band, and a static deal of them measured slower
+  int dev = 0, sms = 0;
+  if ((err = static_cast<int>(cudaGetDevice(&dev))) ||
+      (err = static_cast<int>(cudaDeviceGetAttribute(
+           &sms, cudaDevAttrMultiProcessorCount, dev))))
+    return noted(err, "the card's SM count");
+  const int items = p.B * p.H * ((p.S + BK - 1) / BK);
+  const int blocks = HD == 256 || items < sms ? items : sms;
+  kdkdv<<<blocks, kThreads, dkdv_smem, stream>>>(tq, tdo, tk, tv, p);
+  if ((err = static_cast<int>(cudaGetLastError())))
+    return noted(err, "flash_bwd_dkdv launch");
   if (p.dkp != nullptr) {
-    err = launch_one(flash_bwd_dkdv_sum, 0,
-                     dim3(p.B * (p.H / p.group) * p.S), p, stream);
-    if (err) return err;
+    err = launch_one(flash_bwd_dkdv_sum, dim3(p.B * Hk * p.S), p, stream);
+    if (err) return noted(err, "flash_bwd_dkdv_sum launch");
   }
-  return launch_one(flash_bwd_dq<HD>, Tiles<HD>::kDq,
-                    dim3(p.B * p.H, q_tiles), p, stream);
+  auto kdq = dq::flash_bwd_dq<HD, DST, W>;
+  const size_t dq_smem = dq::Smem<HD, DST>::kBytes;
+  if ((err = set_smem(kdq, dq_smem)))
+    return noted(err, "flash_bwd_dq's shared memory");
+  kdq<<<dim3(p.B * p.H, (p.S + dq::kBQ - 1) / dq::kBQ), kThreads, dq_smem,
+        stream>>>(tds, tkt, p);
+  return noted(static_cast<int>(cudaGetLastError()), "flash_bwd_dq launch");
 }
 
 }  // namespace
@@ -520,24 +971,37 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// what the last flash_attention_bwd that returned an error failed at
+const char* flash_attention_bwd_failure() { return g_failure; }
+
 // q (B,H,S,D), k (B,Hk,S,D), v (B,Hk,S,Dv), o and dout (B,H,S,Dv) in; dq,
 // dk, dv (shaped as q, k, v) out; lse (B,H,S) contiguous float32 in, the
-// forward's log2-domain log-sum-exp; delta (B,H,S) contiguous float32
-// scratch; dkp (B,H,S,D) and dvp (B,H,S,Dv) contiguous float32 scratch
-// where H > Hk, else ignored (may be null). strides: 24 batch/head/sequence
-// strides in elements, three each for q, k, v, o, dout, dq, dk, dv; every
-// last stride is 1. window <= 0: no window. Returns a cudaError_t.
+// forward's log2-domain log-sum-exp. Contiguous float32 scratch: delta
+// (B,H,S); kv (B,Hk,2,S,D8) and vv (B,Hk,2,S,Dv8), D8 and Dv8 D and Dv
+// rounded up to 8; kt (B,Hk,2,D,ld) and ds (B,H,S,ld) with ld >= S a
+// multiple of 8; dkp (B,H,S,D) and dvp
+// (B,H,S,Dv) where H > Hk, else ignored (may be null). strides: 24
+// batch/head/sequence strides in elements, three each for q, k, v, o,
+// dout, dq, dk, dv; every last stride is 1; q and dout 16-byte aligned
+// with strides of multiples of 4 elements. D and Dv multiples of 4.
+// window <= 0: no window. Returns a cudaError_t.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, void* dq, void* dk,
-                        void* dv, const void* lse, void* delta, void* dkp,
-                        void* dvp, int B, int H, int Hk, int S, int D,
-                        int Dv, const long long* strides, float scale,
-                        int causal, int window, void* stream) {
+                        void* dv, const void* lse, void* delta, void* kv,
+                        void* vv, void* kt, void* ds, void* dkp, void* dvp,
+                        int B, int H, int Hk, int S, int D, int Dv, int ld,
+                        const long long* strides, float scale, int causal,
+                        int window, void* stream) {
+  // an error that an earlier runtime call of this thread left (the
+  // autograd engine's thread runs this) is not this call's: clear it, so
+  // that the check after each launch reads that launch's
+  cudaGetLastError();
   if (B <= 0 || H <= 0 || S <= 0) return 0;
-  if (Hk <= 0 || H % Hk || D <= 0 || D > kMaxD || Dv <= 0 || Dv > kMaxD)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (Hk <= 0 || H % Hk || D <= 0 || D > kMaxD || Dv <= 0 || Dv > kMaxD ||
+      D % 4 || Dv % 4 || ld < S || ld % 8)
+    return noted(cudaErrorInvalidValue, "the shapes");
   if (H > Hk && (dkp == nullptr || dvp == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+    return noted(cudaErrorInvalidValue, "the group sum's scratch");
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -549,6 +1013,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   p.dv = static_cast<float*>(dv);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
+  p.kv = static_cast<float*>(kv);
+  p.vv = static_cast<float*>(vv);
+  p.kt = static_cast<float*>(kt);
+  p.ds = static_cast<float*>(ds);
   p.dkp = H > Hk ? static_cast<float*>(dkp) : nullptr;
   p.dvp = H > Hk ? static_cast<float*>(dvp) : nullptr;
   p.B = B;
@@ -557,6 +1025,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   p.S = S;
   p.D = D;
   p.Dv = Dv;
+  p.ld = ld;
   for (int i = 0; i < kTensors; ++i)
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
   p.scale = scale;
@@ -564,9 +1033,19 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   p.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hd = D > Dv ? D : Dv;
-  if (hd <= 64) return launch<64>(p, st);
-  if (hd <= 128) return launch<128>(p, st);
-  return launch<256>(p, st);
+  if (hd <= 64) {
+    if (D == 64 && Dv == 64) return launch<64, 64, 2, 4, 8, 8, 64>(p, st);
+    return launch<64, 64, 2, 4, 0, 0, 0>(p, st);
+  }
+  if (hd <= 128) {
+    if (D == 128 && Dv == 128)
+      return launch<128, 32, 2, 4, 16, 16, 128>(p, st);
+    if (D == 96 && Dv == 64)  // MLA: 64 nope + 32 rope; v 64
+      return launch<128, 32, 2, 4, 12, 8, 96>(p, st);
+    return launch<128, 32, 2, 4, 0, 0, 0>(p, st);
+  }
+  if (D == 256 && Dv == 256) return launch<256, 16, 1, 2, 32, 32, 256>(p, st);
+  return launch<256, 16, 1, 2, 0, 0, 0>(p, st);
 }
 
 }  // extern "C"

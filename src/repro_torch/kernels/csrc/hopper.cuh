@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention forward:
-// TMA tensor maps and copies, mbarriers, wgmma descriptors and products,
-// and register hand-over between warpgroups (setmaxnreg).
+// Hopper (sm_90a) building blocks of the bf16 flash-attention forward and
+// the f32 backward: TMA tensor maps and copies, mbarriers, wgmma
+// descriptors and products (bf16, and tf32 for 3xTF32), and register
+// hand-over between warpgroups (setmaxnreg).
 //
 // Shared-memory tiles are laid out as TMA writes them with 128-byte
 // swizzle: a tile of R rows and HD columns of bf16 is HD / 64 atoms, each R
@@ -11,6 +12,11 @@
 // k-step of 16 columns is 32 bytes further into the row) or as an N-major
 // B operand with the transpose bit (V: a k-step of 16 keys is 16 rows
 // further).
+//
+// f32 tiles take the same layout with 32 columns an atom (128 bytes a row),
+// and a tf32 k-step of 8 columns is the same 32 bytes into the row. tf32
+// wgmma reads A and B K-major only (the transpose bits are for 16-bit
+// types), so the backward takes every A operand from registers.
 #pragma once
 
 #include <cstdint>
@@ -43,16 +49,16 @@ inline PFN_cuTensorMapEncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D bf16 map over (cols, S, heads, B) of a tensor with the given byte
-// strides of its rows, heads and batches, read and written in boxes of
-// 64 columns x box_rows rows with 128-byte swizzle; elements past cols or S
-// read as zero and are not written. A dimension of extent 1 may carry any
-// stride (PyTorch does not fix it): it gets one TMA takes. Returns a
-// cudaError_t.
+// A 4-D map over (cols, S, heads, B) of a bf16 (or, with f32, float32)
+// tensor with the given byte strides of its rows, heads and batches, read
+// and written in boxes of 128 bytes of columns (64 bf16, 32 float32) x
+// box_rows rows with 128-byte swizzle; elements past cols or S read as
+// zero and are not written. A dimension of extent 1 may carry any stride
+// (PyTorch does not fix it): it gets one TMA takes. Returns a cudaError_t.
 inline int make_map(CUtensorMap* map, const void* ptr, int cols, int S,
                     int heads, int B, long long row_bytes,
                     long long head_bytes, long long batch_bytes,
-                    int box_rows) {
+                    int box_rows, bool f32 = false) {
   const PFN_cuTensorMapEncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   auto fix = [](long long stride, int extent, long long row_bytes) {
@@ -66,10 +72,13 @@ inline int make_map(CUtensorMap* map, const void* ptr, int cols, int S,
   const cuuint64_t strides[3] = {fix(row_bytes, S, 16),
                                  fix(head_bytes, heads, row_bytes),
                                  fix(batch_bytes, B, row_bytes)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u,
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      map,
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -469,6 +478,106 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// device: tf32 products for 3xTF32
+// ---------------------------------------------------------------------------
+
+// The backward's split of an f32 x into TF32 values: big = x rounded to
+// TF32 to nearest (ties away from zero, as cvt.rna, in 2 integer
+// instructions where sm_90a expands the cvt into 4), small = x - big
+// rounded the same way. Both are exact TF32 values, and big + small misses
+// x by at most 2^-11 of x - big, about 2^-22 of x. The tiles that the
+// backward keeps in shared memory as B operands are split so.
+__device__ __forceinline__ uint32_t tf32_big(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ uint32_t tf32_small(float x) {
+  return tf32_big(x - __uint_as_float(tf32_big(x)));
+}
+// An A operand in registers keeps small = x - big unrounded (exact in
+// f32): the tensor cores do not read its 13 low bits, so the split misses
+// x by at most a TF32 unit of x - big, about 2^-21 of x, however they
+// treat them, in 3 instructions an element instead of 5.
+__device__ __forceinline__ void tf32_split_a(float x, uint32_t& big,
+                                             uint32_t& small) {
+  big = tf32_big(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// wgmma_tf32 is D (64 x N f32) += A (64 x 8 tf32 in registers) * B (8 x N
+// tf32, K-major in shared memory: N rows of 8), D taken as zero where
+// scale_d == 0. A's registers are each warp's m16n8k8 A fragment: a[0] (g,
+// t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4) for g = lane /
+// 4, t = lane % 4 in the warp's 16 rows; D is laid out as wgmma_ss's.
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+// 3xTF32: d += A B as small(A) big(B) + big(A) small(B), then + big(A)
+// big(B) (small * small is dropped), with A's big and small fragments in
+// registers and B's big and small tiles at the descriptors bb and bs
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[N],
+                                             const uint32_t (&a_big)[4],
+                                             const uint32_t (&a_small)[4],
+                                             uint64_t bb, uint64_t bs,
+                                             int scale_d) {
+  wgmma_tf32(d, a_small, bb, scale_d);
+  wgmma_tf32(d, a_big, bs, 1);
+  wgmma_tf32(d, a_big, bb, 1);
 }
 
 }  // namespace hopper

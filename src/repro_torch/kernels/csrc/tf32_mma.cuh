@@ -1,6 +1,6 @@
-// 3xTF32 products on Hopper's tensor cores, shared by the f32 kernels
-// (flash_fwd_tf32 in flash_attention.cu, the backward in
-// flash_attention_bwd.cu).
+// 3xTF32 products on Hopper's tensor cores for the f32 forward
+// (flash_fwd_tf32 in flash_attention.cu); the backward runs its 3xTF32 on
+// wgmma (hopper.cuh).
 //
 // Each f32 operand x is split into TF32 values big = rna(x) and small =
 // rna(x - big), and a product is small*big + big*small, then + big*big, on

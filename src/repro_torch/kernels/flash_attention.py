@@ -11,9 +11,9 @@ on tensor cores: bfloat16 in ``flash_fwd_wgmma`` (warpgroup products fed
 by TMA through an mbarrier ring, shared helpers in ``csrc/hopper.cuh``),
 float32 in ``flash_fwd_tf32`` (each product as three TF32 products, for
 f32 accuracy). The backward (``flash_attention_bwd_cuda``) is the gradient
-that the JAX package leaves to autodiff; it runs in float32, on tensor
-cores as 3xTF32 too, from the log-sum-exp that the f32 forward keeps when
-asked (``with_lse=True``).
+that the JAX package leaves to autodiff; it runs in float32, as 3xTF32
+warpgroup products (``wgmma`` tf32) on tiles that TMA brings, from the
+log-sum-exp that the f32 forward keeps when asked (``with_lse=True``).
 """
 from __future__ import annotations
 
@@ -79,9 +79,21 @@ def bwd_work(b, h, hk, s, d, dv, window, itemsize=4, causal=True) -> tuple:
 def head_tile(d: int, dv: int) -> int:
     """The head width of the kernels' shared-memory tiles (for bf16, 64-
     column atoms): max(D, Dv) rounded up to 64, 128 or 256, the zero-filled
-    columns included. The float32 kernels, forward and backward, compute at
-    that width."""
+    columns included. The float32 forward computes at that width."""
     return next(t for t in (64, 128, 256) if max(d, dv) <= t)
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bwd_product_widths(d: int, dv: int) -> tuple:
+    """The widths at which the backward kernel computes its five products,
+    in ``bwd_work``'s order (Q K^T D deep, dO V^T Dv deep, P^T dO Dv wide,
+    dS K D wide, dS^T Q D wide): S and dP D and Dv deep rounded up to the
+    tf32 k-step of 8; dV^T and dK^T D and Dv rows rounded up to wgmma's 64;
+    dQ D wide rounded up to 32 (its n-tiles are 64 and 32 wide)."""
+    return _up(d, 8), _up(dv, 8), _up(dv, 64), _up(d, 32), _up(d, 64)
 
 
 def product_widths(d: int, dv: int, dtype=torch.float32) -> tuple:
@@ -99,34 +111,42 @@ def padded_flops(flops: float, d: int, dv: int, backward: bool = False,
                  dtype=torch.float32):
     """``flops`` of ``work`` (or ``bwd_work``) at the widths the kernel
     computes: the forward's products at ``product_widths``, the backward's
-    (float32 only) all ``head_tile`` wide."""
+    (float32 only) at ``bwd_product_widths``."""
     if backward:
-        return flops * 5 * head_tile(d, dv) / (3 * d + 2 * dv)
+        return flops * sum(bwd_product_widths(d, dv)) / (3 * d + 2 * dv)
     wd, wdv = product_widths(d, dv, dtype)
     return flops * (wd + wdv) / (d + dv)
 
 
+def layout_error(name: str, t: torch.Tensor):
+    """Why ``t`` breaks the kernels' layout rule (see ``check_mma_layout``),
+    or None where it keeps it."""
+    n = 16 // t.element_size()
+    shape, stride = t.shape, t.stride()
+    what = f"flash_attention ({str(t.dtype).split('.')[-1]})"
+    if shape[-1] % n:
+        return (f"{what}: {name} has head dim {shape[-1]}, not a multiple "
+                f"of {n}")
+    if t.data_ptr() % 16:
+        return f"{what}: {name}'s data pointer is not 16-byte aligned"
+    if any(shape[i] > 1 and stride[i] % n for i in range(3)):
+        return (f"{what}: {name}'s batch, head and sequence strides "
+                f"{stride[:3]} are not all multiples of {n} elements")
+    return None
+
+
 def check_mma_layout(tensors: dict) -> None:
-    """The kernels copy 16-byte rows (the f32 kernel with ``cp.async``, the
-    bf16 kernel through TMA tensor maps, which take the same alignment):
-    each (B, H, S, D) tensor needs a 16-byte aligned data pointer, batch,
-    head and sequence strides that are multiples of 16 bytes, and a last
-    dim that is a multiple of 16 bytes (8 bfloat16 or 4 float32 elements).
-    Raises ValueError naming what fails; there is no other path for such an
-    input."""
+    """The kernels copy 16-byte rows (the f32 forward with ``cp.async``,
+    the bf16 forward and the backward through TMA tensor maps, which take
+    the same alignment): each (B, H, S, D) tensor needs a 16-byte aligned
+    data pointer, batch, head and sequence strides that are multiples of 16
+    bytes, and a last dim that is a multiple of 16 bytes (8 bfloat16 or 4
+    float32 elements). Raises ValueError naming what fails; there is no
+    other path for such an input."""
     for name, t in tensors.items():
-        n = 16 // t.element_size()
-        what = f"flash_attention ({str(t.dtype).split('.')[-1]})"
-        if t.shape[-1] % n:
-            raise ValueError(f"{what}: {name} has head dim {t.shape[-1]}, "
-                             f"not a multiple of {n}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name}'s data pointer is not 16-byte "
-                             f"aligned")
-        if any(t.shape[i] > 1 and t.stride(i) % n for i in range(3)):
-            raise ValueError(f"{what}: {name}'s batch, head and sequence "
-                             f"strides {t.stride()[:3]} are not all "
-                             f"multiples of {n} elements")
+        err = layout_error(name, t)
+        if err is not None:
+            raise ValueError(err)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -182,8 +202,29 @@ def _like_bshd(t: torch.Tensor) -> torch.Tensor:
     the model's transposed projections are, so that the gradient's
     transpose back is free."""
     b, h, s, d = t.shape
-    return torch.empty((b, s, h, d), dtype=t.dtype,
-                       device=t.device).transpose(1, 2)
+    return torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1),
+                               dtype=t.dtype, device=t.device)
+
+
+# dS of one launch stays under this many bytes: a larger problem runs in
+# slabs of batches (or, within one, of kv-head groups)
+BWD_DS_BYTES = 1 << 30
+
+
+def _slabs(b: int, hk: int, group: int, s: int, ld: int):
+    """(batch slice, kv-head slice) pieces whose dS scratch (G query heads
+    a kv head, S x ld f32 each) fits ``BWD_DS_BYTES``, at least one kv
+    head a piece."""
+    per_kvh = group * s * ld * 4
+    if b * hk * per_kvh <= BWD_DS_BYTES:
+        return [(slice(0, b), slice(0, hk))]
+    if hk * per_kvh <= BWD_DS_BYTES:
+        n = BWD_DS_BYTES // (hk * per_kvh)
+        return [(slice(i, min(i + n, b)), slice(0, hk))
+                for i in range(0, b, n)]
+    n = max(1, BWD_DS_BYTES // per_kvh)
+    return [(slice(i, i + 1), slice(j, min(j + n, hk)))
+            for i in range(b) for j in range(0, hk, n)]
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -195,18 +236,23 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     with_lse=True)``, same causal, window and scale) for the incoming
     gradient ``dout`` (both (B, H, S, Dv)). Returns (dq, dk, dv) shaped as
     q, k and v. float32 only; every input but lse may be a strided view
-    with a contiguous last dim."""
+    with a contiguous last dim; q and dout, which the kernel reads by TMA,
+    must pass ``check_mma_layout``. The kernels keep dS (B, H, S, S rounded
+    up to 8) in device memory for the dQ pass; where that passes
+    ``BWD_DS_BYTES``, the call runs in slabs of batches or kv-head
+    groups."""
     check_args(q, k, v)
     b, h, s, d = q.shape
     hk, dv_dim = k.shape[1], v.shape[-1]
     tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout}
+    device = q.device
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise ValueError(f"flash_attention_bwd on the card takes float32 "
                              f"only, got {name} in {t.dtype}")
-        if t.device != q.device:
+        if t.device != device:
             raise ValueError(f"flash_attention_bwd: {name} on {t.device}, "
-                             f"q on {q.device}")
+                             f"q on {device}")
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention_bwd wants a contiguous last "
                              f"dim, {name} has strides {t.stride()}")
@@ -222,32 +268,56 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype} on {lse.device}, want a contiguous "
                          f"{(b, h, s)} float32 tensor on {q.device}")
+    check_mma_layout({"q": q, "dout": dout})
     dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
-    delta = torch.empty_like(lse)
-    # a kv head that serves G > 1 query heads: each query head's dK and dV
-    # go to scratch, summed in head order by a second pass (no atomics)
-    dkp = dvp = None
-    if h > hk:
-        dkp = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
-        dvp = torch.empty((b, h, s, dv_dim), dtype=torch.float32,
-                          device=q.device)
-    strides = (ctypes.c_longlong * 24)(*[
-        t.stride(i) for t in (q, k, v, out, dout, dq, dk, dv)
-        for i in range(3)])
-    lib = _build.load("flash_attention_bwd")
-    lib.flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-           ctypes.c_int, ctypes.c_void_p])
-    lib.flash_attention_bwd.restype = ctypes.c_int
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_bwd(
-        *(t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv, lse,
-                                 delta)),
-        *(None if t is None else t.data_ptr() for t in (dkp, dvp)),
-        b, h, hk, s, d, dv_dim, strides, float(scale), int(causal),
-        int(window or 0), stream)
-    _build.check(lib, err, "flash_attention_bwd launch")
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    if fn.argtypes is None:  # the library's first call
+        fn.argtypes = (
+            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    group, ld = h // hk, _up(s, 8)
+    slabs = _slabs(b, hk, group, s, ld)
+    # f32 scratch of the largest (the first) slab, in one buffer: delta
+    # (B, H, S); K's and V's halves (B, Hk, 2, S, D | Dv rounded up to 8);
+    # K^T's halves (B, Hk, 2, D, ld); dS (B, H, S, ld), ld = S rounded up
+    # to 8; where G > 1 the per-query-head partials of dK and dV,
+    # (B, H, S, D | Dv), summed in head order by a second pass (no
+    # atomics). Each piece starts on a 256-byte line.
+    first_b, first_k = slabs[0]
+    nb, nhk = first_b.stop - first_b.start, first_k.stop - first_k.start
+    nh = nhk * group
+    sizes = [nb * nh * s, nb * nhk * 2 * s * _up(d, 8),
+             nb * nhk * 2 * s * _up(dv_dim, 8), nb * nhk * 2 * d * ld,
+             nb * nh * s * ld]
+    if group > 1:
+        sizes += [nb * nh * s * d, nb * nh * s * dv_dim]
+    sizes = [_up(n, 64) for n in sizes]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    ptrs, at = [], scratch.data_ptr()
+    for n in sizes:
+        ptrs.append(at)
+        at += 4 * n
+    ptrs += [None] * (7 - len(ptrs))
+    for bs, ks in slabs:
+        hs = slice(ks.start * group, ks.stop * group)  # their query heads
+        views = (q, k, v, out, dout, dq, dk, dv)
+        if len(slabs) > 1:  # k, v, dk and dv by kv head, the rest by head
+            views = tuple(t[bs, ks if i in (1, 2, 6, 7) else hs]
+                          for i, t in enumerate(views))
+        qv, kv = views[0], views[1]
+        strides = (ctypes.c_longlong * 24)(*[
+            x for t in views for x in t.stride()[:3]])
+        err = fn(*(t.data_ptr() for t in views), lse[bs, hs].data_ptr(),
+                 *ptrs, qv.shape[0], qv.shape[1], kv.shape[1], s, d, dv_dim,
+                 ld, strides, scale, int(causal), int(window or 0), stream)
+        if err:
+            lib = _build.load("flash_attention_bwd")
+            lib.flash_attention_bwd_failure.restype = ctypes.c_char_p
+            _build.check(lib, err, "flash_attention_bwd launch, at "
+                         + lib.flash_attention_bwd_failure().decode())
     _build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

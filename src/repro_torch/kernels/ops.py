@@ -132,8 +132,11 @@ class _FlashAttention(torch.autograd.Function):
             grads = ref.flash_attention_bwd_ref(q, k, v, out, dout,
                                                 **ctx.args)
         else:
-            if dout.stride(-1) != 1:
-                dout = dout.contiguous()
+            # the kernel reads dout by TMA: a copy where it breaks the rule
+            if dout.stride(-1) != 1 \
+                    or _flash.layout_error("dout", dout) is not None:
+                dout = torch.empty_like(
+                    dout, memory_format=torch.contiguous_format).copy_(dout)
             grads = _flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
                                                     **ctx.args)
         return (*grads, None, None, None)

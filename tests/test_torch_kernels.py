@@ -162,8 +162,7 @@ def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
     a producer warpgroup that hands its registers over with setmaxnreg,
     helpers that hopper.cuh holds; f32 to flash_fwd_tf32, whose products
     are three mma.sync m16n8k8 tf32 on operands split with the rounding of
-    cvt.rna.tf32.f32, helpers that tf32_mma.cuh holds for both f32
-    kernels. No SIMT kernel, no scalar product and no warp-level bf16
+    cvt.rna.tf32.f32, helpers that tf32_mma.cuh holds. No SIMT kernel, no scalar product and no warp-level bf16
     kernel is left."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     hdr = (_build.CSRC / "tf32_mma.cuh").read_text()
@@ -257,17 +256,27 @@ def _tf32(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _tf32_trunc(x):
+    """x with its 13 low mantissa bits cleared, as the tensor cores read
+    an f32 word as TF32."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def _product(a, b, how):
     """a @ b as the tensor cores compute it from f32 operands: "f32" as
     is, "tf32" one product of the rounded operands, "3xtf32" the split
-    x = big + small: small*big + big*small, then + big*big."""
+    x = big + small: small*big + big*small, then + big*big, with big and
+    small both rounded to TF32 (the forward's split); "3xtf32k" the
+    backward's: b split so (its tiles in shared memory), a, the operand in
+    registers, with small = a - big unrounded, read by the tensor cores
+    with its low 13 bits dropped."""
     if how == "f32":
         return a @ b
     a_big, b_big = _tf32(a), _tf32(b)
     if how == "tf32":
         return a_big @ b_big
-    return (_tf32(a - a_big) @ b_big + a_big @ _tf32(b - b_big)) \
-        + a_big @ b_big
+    a_small = (_tf32_trunc if how == "3xtf32k" else _tf32)(a - a_big)
+    return (a_small @ b_big + a_big @ _tf32(b - b_big)) + a_big @ b_big
 
 
 def _emulated_flash(q, k, v, window, qk, pv):
@@ -388,7 +397,10 @@ def _emulated_flash_bwd(q, k, v, out, dout, window, how):
     forward's log-sum-exp in base 2 (from 3xTF32 scores, as flash_fwd_tf32
     gives it), P = exp2(S scale log2(e) - lse) with S recomputed by
     ``how``, delta = rowsum(dO o O) in f32, and dP = dO V^T, dV = P^T dO,
-    dK = dS^T Q scale, dQ = dS K scale by ``how``; dK and dV summed over
+    dK = dS^T Q scale, dQ = dS K scale by ``how``, each with the operand
+    that the kernel holds in registers first (dV^T = dO^T P, dK^T = Q^T
+    dS); with "3xtf32k" dS takes P as the sum of its split halves, as the
+    kernel reads P back from the tiles it wrote; dK and dV summed over
     each kv head's group."""
     b, h, s, d = q.shape
     hk = k.shape[1]
@@ -408,23 +420,29 @@ def _emulated_flash_bwd(q, k, v, out, dout, window, how):
                           keepdim=True) / math.log(2)
     p = torch.exp2(scores(how) - lse)
     delta = (dout * out).sum(dim=-1, keepdim=True)
-    ds = p * (_product(dout, ve.transpose(-1, -2), how) - delta)
-    dv = _product(p.transpose(-1, -2), dout, how)
-    dk = _product(ds.transpose(-1, -2), q, how) * scale
+    p_ds = p
+    if how == "3xtf32k":
+        p_ds = _tf32(p) + _tf32(p - _tf32(p))
+    ds = p_ds * (_product(dout, ve.transpose(-1, -2), how) - delta)
+    dv = _product(dout.transpose(-1, -2), p, how).transpose(-1, -2)
+    dk = _product(q.transpose(-1, -2), ds, how).transpose(-1, -2) * scale
     dq = _product(ds, ke, how) * scale
     return (dq, dk.reshape(b, hk, g, s, d).sum(dim=2),
             dv.reshape(b, hk, g, s, v.shape[-1]).sum(dim=2))
 
 
+@pytest.mark.parametrize("split", ["3xtf32", "3xtf32k"])
 @pytest.mark.parametrize("window", [None, 64])
-def test_flash_attention_bwd_3xtf32_split_keeps_f32_parity(window):
+def test_flash_attention_bwd_3xtf32_split_keeps_f32_parity(window, split):
     """Why the backward splits every product into three TF32 products. At
     gemma3-1b's heads (H=4, Hk=1, D=256), B=2, S=256, the emulated split
-    is within 1.5e-06 of each gradient's max from the f32 plain version
-    (window None or 64); with each of the five products and the recomputed
-    P as one TF32 product, dQ is 1.18e-03 of its max from it, dK 6.8e-04
-    to 7.7e-04, dV 7.2e-04: outside the 1e-4 that the card's tests and
-    chip_smoke.py hold the kernel to."""
+    is within 1.5e-06 of each gradient's max from the f32 plain version,
+    both with the forward's split ("3xtf32") and with the one the kernel
+    runs ("3xtf32k": small unrounded in the register operand; see
+    _emulated_flash_bwd; window None or 64); with each of the five
+    products and the recomputed P as one TF32 product, dQ is 1.18e-03 of
+    its max from it, dK 6.8e-04 to 7.7e-04, dV 7.2e-04: outside the 1e-4
+    that the card's tests and chip_smoke.py hold the kernel to."""
     q, k, v, dout = (torch.from_numpy(a) for a in _bwd_inputs(
         2, 4, 1, 256, 256, 256, seed=512))
     out = ref.flash_attention_ref(q, k, v, window=window)
@@ -434,37 +452,81 @@ def test_flash_attention_bwd_3xtf32_split_keeps_f32_parity(window):
         got = _emulated_flash_bwd(q, k, v, out, dout, window, how)
         return [((g - e).abs().max() / e.abs().max()).item()
                 for g, e in zip(got, exp)]
-    assert max(errs("3xtf32")) < 1e-5
+    assert max(errs(split)) < 1e-5
     assert min(errs("tf32")) > 5e-4
 
 
 def test_flash_attention_bwd_cu_runs_only_on_tensor_cores():
-    """Every product of the backward is 3xTF32 mma.sync: the two product
-    kernels (dK and dV; dQ) run S and dP through mma_nt2 and the gradient
-    products through mma_nn, whose steps call mma_3xtf32 on operands split
-    by split_tf32 (tf32_mma.cuh). No SIMT product loop (dots<, fmaf) is
-    left, and the passes that are not products (delta, the group sum) do
-    no mma."""
+    """Every product of the backward is 3xTF32 wgmma on tiles that TMA
+    brings: the dK/dV kernel runs S or dP through product_nt and dK^T or
+    dV^T through product_tn, the dQ kernel dS K, each as wgmma_3xtf32
+    (hopper.cuh: three wgmma.mma_async .tf32 products, A in registers) on
+    A fragments split once by split4, with B tiles that TMA lands
+    (cp.async.bulk.tensor) on mbarriers. No mma.sync, mma1688, cp_async4,
+    atomicAdd or SIMT product loop is left; the passes that are not
+    products (delta, the K/V split, the group sum) issue no wgmma."""
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    assert '#include "tf32_mma.cuh"' in src
-    assert "dots<" not in src and "fmaf(" not in src
-    for helper in ("void nt_step(", "void mma_nn("):
+    hdr = (_build.CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src and "tf32_mma.cuh" not in src
+    for gone in ("mma.sync", "mma1688", "cp_async4", "cp.async.ca",
+                 "atomicAdd", "dots<", "fmaf("):
+        assert gone not in src
+    assert not re.search(r"\bmma_3xtf32\(", src)  # tf32_mma.cuh's
+    for n in (16, 32, 64):
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32" in hdr
+    assert _body(hdr, "void wgmma_3xtf32(").count("wgmma_tf32(") == 3
+    assert "cp.async.bulk.tensor" in _body(hdr, "void tma_load(")
+    assert "FLOAT32" in _body(hdr, "inline int make_map(")
+    for helper in ("void product_nt(", "void product_tn("):
         body = _body(src, helper)
-        assert "mma_3xtf32(" in body and "split_tf32(" in body
-    assert _body(src, "void mma_nt2(").count("nt_step<") == 4
-    for kernel, products in (("flash_bwd_dkdv(Params p)", 2),
-                             ("flash_bwd_dq(Params p)", 1)):
-        body = _body(src, kernel)
-        assert body.count("mma_nt2<") == 1
-        assert body.count("mma_nn<") == products
-    for kernel in ("flash_bwd_delta(Params p)",
+        assert body.count("wgmma_3xtf32(") == 1 and "split4(" in body
+        assert "wgmma_fence()" in body and "wgmma_wait<0>()" in body
+    # an atom of Q or dO is waited for before its products, freed after
+    assert "mbar_wait(" in _body(src, "void product_nt(")
+    assert "mbar_arrive(" in _body(src, "void product_tn(")
+    consume = _body(src, "void consume(")
+    assert consume.count("product_nt<") == 1
+    assert consume.count("product_tn<") == 1
+    dkdv = _body(src, "flash_bwd_dkdv(const __grid_constant__")
+    assert dkdv.count("tma_load(") == 6 and "setmaxnreg_dec<" in dkdv
+    # both roles, in the persistent loop (HD <= 128) and in the one-item
+    # body (HD = 256)
+    assert dkdv.count("consume<") == 4 and "if constexpr (kPersistent)" in dkdv
+    dq = _body(src, "flash_bwd_dq(const __grid_constant__")
+    assert dq.count("tma_load(") == 3 and "split4(" in dq
+    assert dq.count("wgmma_3xtf32(") == 3  # 64 wide, or the last 32 wide
+    for kernel in ("flash_bwd_delta(Params p)", "flash_bwd_prep_kv(Params p)",
                    "flash_bwd_dkdv_sum(Params p)"):
-        assert "mma" not in _body(src, kernel)
+        body = _body(src, kernel)
+        assert "wgmma" not in body and "tma_" not in body
     launch = _body(src, "int launch(const Params& p")
-    assert re.findall(r"launch_one\((flash_bwd_\w+)", launch) == [
-        "flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dkdv_sum",
-        "flash_bwd_dq"]
-    assert "flash_bwd_prep" not in src
+    assert re.findall(r"(?:launch_one\(|::)(flash_bwd_\w+)", launch) == [
+        "flash_bwd_delta", "flash_bwd_prep_kv", "flash_bwd_dkdv",
+        "flash_bwd_dkdv_sum", "flash_bwd_dq"]
+
+
+@pytest.mark.parametrize("b,hk,group,s,cap", [
+    (4, 1, 4, 1024, 1 << 30),  # gemma3-1b's train shape: one launch
+    (4, 2, 6, 1280, 80 << 20),  # batches a slab
+    (2, 8, 1, 4096, 130 << 20),  # kv heads a slab, within one batch
+    (1, 2, 4, 8192, 1 << 20),  # one kv head over the limit: a slab alone
+])
+def test_flash_bwd_slabs_cover_each_kv_head_once(monkeypatch, b, hk, group,
+                                                 s, cap):
+    """The backward's dS scratch stays under BWD_DS_BYTES a launch: the
+    slabs cover every (batch, kv head) once, each within the limit unless
+    it is one kv head, and where several batches share a slab it holds
+    all their kv heads (lse and the scratch stay contiguous)."""
+    monkeypatch.setattr(flash, "BWD_DS_BYTES", cap)
+    ld = -(-s // 8) * 8
+    slabs = flash._slabs(b, hk, group, s, ld)
+    seen = [(i, j) for bs, ks in slabs for i in range(bs.start, bs.stop)
+            for j in range(ks.start, ks.stop)]
+    assert sorted(seen) == [(i, j) for i in range(b) for j in range(hk)]
+    for bs, ks in slabs:
+        n_kvh = (bs.stop - bs.start) * (ks.stop - ks.start)
+        assert n_kvh == 1 or n_kvh * group * s * ld * 4 <= cap
+        assert bs.stop - bs.start == 1 or (ks.start, ks.stop) == (0, hk)
 
 
 def test_library_path_hashes_headers(tmp_path, monkeypatch):
@@ -981,6 +1043,81 @@ def test_flash_attention_bwd_kernel_rejects(cuda, bad):
         flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=True,
                                        window=None, scale=None)
     assert ops.LAUNCHES["flash_attention_bwd"] == before
+
+
+def _misaligned_dout(what, b, h, s, dv, device, seed):
+    """dO as a (B, S, H, Dv) view transposed to (B, H, S, Dv) that breaks
+    TMA's 16-byte rule: its data pointer one element past a 16-byte line,
+    or rows H * Dv + 2 elements apart."""
+    gen = torch.Generator(device).manual_seed(seed)
+    n = b * s * (h * dv + 2)
+    flat = torch.randn(n + 1, generator=gen, device=device)
+    if what == "pointer":
+        return flat[1:1 + b * s * h * dv].view(b, s, h, dv).transpose(1, 2)
+    return flat[:n].view(b, s, h * dv + 2)[..., :h * dv].view(
+        b, s, h, dv).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["pointer", "seq_stride"])
+def test_flash_attention_bwd_copies_misaligned_dout(cuda, what):
+    """An incoming gradient whose layout TMA cannot read goes through
+    ``ops.flash_attention`` as a copy: the gradients equal those of the
+    same values laid out contiguously, bit for bit."""
+    q, k, v = (t.to(cuda).requires_grad_() for t in _bsdh_views(
+        2, 300, 4, 1, 64, torch.float32))
+    bad = _misaligned_dout(what, 2, 4, 300, 64, cuda, seed=3)
+    assert flash.layout_error("dout", bad) is not None
+    out = ops.flash_attention(q, k, v, window=40)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    got = torch.autograd.grad(out, (q, k, v), bad, retain_graph=True)
+    exp = torch.autograd.grad(out, (q, k, v), bad.contiguous())
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 2
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["pointer", "seq_stride"])
+def test_flash_attention_bwd_kernel_rejects_misaligned_dout(cuda, what):
+    """The wrapper itself takes no view that TMA cannot read: it raises,
+    naming dout, with no launch."""
+    q, k, v = (t.to(cuda) for t in _bsdh_views(2, 300, 4, 1, 64,
+                                                torch.float32))
+    out, lse = flash.flash_attention_cuda(q, k, v, causal=True, window=None,
+                                          scale=None, with_lse=True)
+    bad = _misaligned_dout(what, 2, 4, 300, 64, cuda, seed=4)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="dout"):
+        flash.flash_attention_bwd_cuda(q, k, v, out, bad, lse, causal=True,
+                                       window=None, scale=None)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [2 << 20, 1 << 20])
+def test_flash_attention_bwd_kernel_slabs(cuda, monkeypatch, cap):
+    """A problem whose dS (2.9 MB here) passes BWD_DS_BYTES runs in slabs
+    (of batches at 2 MiB, of kv heads within a batch at 1 MiB) and gives
+    the bits of one launch: each slab runs the same kernels on its own
+    heads."""
+    q, k, v, dout = _bwd_on_card(cuda, 2, 4, 2, 300, 64, 64, seed=5)
+    out, lse = flash.flash_attention_cuda(q, k, v, causal=True, window=None,
+                                          scale=None, with_lse=True)
+    whole = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                           causal=True, window=None,
+                                           scale=None)
+    monkeypatch.setattr(flash, "BWD_DS_BYTES", cap)
+    assert len(flash._slabs(2, 2, 2, 300, 304)) > 1
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    sliced = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                            causal=True, window=None,
+                                            scale=None)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    for g, w in zip(sliced, whole):
+        assert torch.equal(g, w)
 
 
 # minicpm3-4b's MLA heads: D = 96 (64 nope + 32 rope), Dv = 64, H = Hk =
