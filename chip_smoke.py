@@ -16,13 +16,16 @@ Phases, one printed line each; any failure raises and exits non-zero:
              and bf16, B=4, H=Hk=40, S=1024, D=96, Dv=64), at
              musicgen-large's (f32, B=4, H=Hk=32, S=64+1024, D=64) and at
              qwen2-vl-2b's (f32, B=4, H=12, Hk=2, S=256+1024, D=128)
-             against its plain version; two bf16 launches bit-equal;
-             kernel, plain, bound and library (scaled_dot_product_attention)
-             ms; each line names the kernel's path, wgmma (bf16: warpgroup
-             products fed by TMA) or tf32 (f32 as 3xTF32 mma.sync), both on
-             tensor cores, the rate its bound assumes, and where the kernel
-             computes wider than D and Dv (f32: the 64/128/256 tile; bf16:
-             D to 16, Dv to 8), the bound of the padded work
+             against its plain version; two launches bit-equal (f32 and
+             bf16); kernel, plain, bound and library
+             (scaled_dot_product_attention) ms, and the kernels' device ms
+             alone (torch.profiler; f32: the pre-pass included), apart from
+             the host's work in a single call; each line names the
+             kernel's path, wgmma (bf16) or wgmma-tf32 (f32 as 3xTF32),
+             both warpgroup products fed by TMA, the rate its bound
+             assumes, and where the kernel computes wider than D and Dv
+             (f32: D to 8, Dv to chunks of 64; bf16: D to 16, Dv to 8), the
+             bound of the padded work
   ssm_scan   the selective-scan kernel at the Jamba prefill shape (f32,
              B=4, S=1024, D=16384, N=16) and a ragged one (S=1000,
              D=16376) against its plain version; kernel, plain, bound ms,
@@ -214,6 +217,22 @@ DRYRUN_CELLS = [
      "state")]
 
 
+def device_ms(torch, fn, pattern, calls=10) -> float:
+    """Device ms of one fn() call: the device time of the kernels whose
+    names match ``pattern``, summed by torch.profiler over ``calls`` calls
+    after a warm-up, divided by ``calls``; the host's work between the
+    launches is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if re.search(pattern, ev.key)) / 1e3 / calls
+
+
 def time_ms(torch, fn) -> float:
     """Median of REPS CUDA-event timings of fn(), after a warm-up."""
     fn()
@@ -246,9 +265,10 @@ def phase_device(torch) -> None:
 
 
 def _kernel_name(mangled: str) -> str:
-    """'_ZN12_GLOBAL__N_13mma14flash_fwd_tf32ILi256ELi32EEEvNS_6ParamsE'
-    -> 'flash_fwd_tf32<256,32>': the innermost name and its integer
-    template arguments."""
+    """'_ZN12_GLOBAL__N_12tf14flash_fwd_tf32ILi128ELi64ELi64ELi64ELi2ELi8E'
+    'Li64EEEv14CUtensorMap_stS2_S2_NS0_4ArgsE' -> 'flash_fwd_tf32<128,64,
+    64,64,2,8,64>': the innermost name and its integer template
+    arguments."""
     name, rest = mangled, mangled[3 if mangled.startswith("_ZN") else 2:]
     while rest[:1].isdigit():
         n = re.match(r"\d+", rest).group()
@@ -371,6 +391,8 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
                 out.float(), exp.float(), atol=tol, rtol=tol)
         ms = time_ms(torch, lambda: ops.flash_attention(q, k, v,
                                                         window=window))
+        dev_ms = device_ms(torch, lambda: ops.flash_attention(
+            q, k, v, window=window), r"flash_fwd")
         plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
             q, k, v, window=window))
         ke, ve = (t.repeat_interleave(h // hk, dim=1) for t in (k, v))
@@ -392,7 +414,7 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
         work = flash.work(b, h, hk, s, d, dv, window, q.element_size())
         flops, nbytes = work
         bound_ms, bound_by = bound(rl, work, peak)
-        path = "wgmma" if dtype == torch.bfloat16 else "tf32"
+        path = "wgmma" if dtype == torch.bfloat16 else "wgmma-tf32"
         label = (f"{name} B={b} H={h} Hk={hk} S={s} D={d}"
                  f"{'' if dv == d else f' Dv={dv}'} window={window} {path}")
         rate = f"at {peak / 1e12:.1f} TFLOP/s"
@@ -407,20 +429,22 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
                      f"wide: {(d + dv) / (wd + wdv):.1%} of its products "
                      f"are real, bound at the padded work "
                      f"{bound(rl, padded, peak)[0]:.4f} ms")
+        same = torch.equal(out, ops.flash_attention(q, k, v, window=window))
         print(f"flash_attention[{label}]: max_abs_err {err:.3e} (tol "
-              f"{tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{tol:g}); two launches "
+              f"{'bit-equal' if same else 'DIFFER'}; kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms {rate} "
               f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
         if not ok:
             raise AssertionError(f"flash_attention {label}: max abs err "
                                  f"{err}")
-        if dtype == torch.bfloat16 and not torch.equal(
-                out, ops.flash_attention(q, k, v, window=window)):
+        if not same:
             raise AssertionError(f"flash_attention {label}: two launches "
                                  f"differ")
         results[(name, s, window, h)] = {
             "label": label, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
         del q, k, v, ke, ve, out, exp
     # the kernel's entry: gemma3-1b's own case (f32 prefill of a local
@@ -430,8 +454,9 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
     del main["label"]
     main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
     main["cases"] = [{key: r[key] for key in (
-        "label", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
-        for r in results.values()]
+        "label", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+        "max_abs_err")} for r in results.values()]
+    del main["device_ms"]
     return main
 
 

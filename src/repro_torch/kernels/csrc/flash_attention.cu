@@ -44,7 +44,7 @@
 //     then runs the softmax of tile i while the other issues; P alternates
 //     between two register sets, so that nothing an unfinished product
 //     reads is rewritten and ptxas keeps the products asynchronous;
-//   - the softmax is flash_fwd_tf32's below in the log2 domain, with the
+//   - the softmax runs in the log2 domain (flash_fwd_tf32's too), with the
 //     -1e30 sentinel on the tiles that cross an edge of the band or S; the
 //     others take max and exponent from the raw scores with the scale in
 //     one fma, and exponents are ex2.approx.ftz; f32 m, l and O, l clamped
@@ -66,48 +66,75 @@
 //   dynamic tile scheduler; clusters with TMA multicast of K and V across
 //   the query heads of a GQA group.
 //
-// flash_fwd_tf32, f32 (FlashAttention-2 on warp-level tensor cores, 3xTF32):
-//   - one block of two groups of 4 warps per (batch*head, 64-row query
-//     tile), each warp owning 16 query rows; the KV loop is bounded to the
-//     causal and window bands, the tiles that reach past the diagonal go
-//     first (the grid's y runs backwards); the groups share the f32 Q tile
-//     and each takes every other KV tile of the band into its own f32 K and
-//     V tiles (16-byte cp.async copies, D and Dv multiples of 4,
-//     zero-filled to HD in {64, 128, 256}; the next K loads during P V, the
-//     next V during the next Q K^T) and syncs on its own named barrier; at
-//     the end group 1 hands m, l and O to group 0 through shared memory,
-//     which merges them. At HD = 256 a block fills the SM's shared memory
-//     (201,728 bytes, 32-key tiles), so the groups are what puts 8 warps on
-//     an SM instead of 4 (64-key tiles at HD = 64);
-//   - scale, mask and the -1e30 sentinel are applied after scaling, in the
-//     log2 domain (log2(e) folded into the scale, exp2f), so a row that is
-//     fully masked so far takes p = 1 and is wiped by corr = 0 as in the
-//     reference; m and l are f32, the row max is an xor shuffle over the 4
-//     lanes of a C-fragment row, l is summed per lane and reduced once at
-//     the end, clamped at 1e-30; O is staged through the warp's own rows of
-//     the Q tile and stored as 16-byte rows;
-//   - each f32 operand x is split into TF32 values big = rna(x) and small =
-//     rna(x - big), and every product is small*big + big*small, then +
-//     big*big, with mma.sync m16n8k8 tf32 -> f32 (small*small is dropped, as
-//     in CUTLASS's fast-f32 GEMMs): about f32 accuracy, where one TF32 product
-//     on either matmul misses the 1e-4 tolerance; the bound is the TF32
-//     tensor-core rate over 3 (494.7 / 3 TFLOP/s). rna is the rounding of
-//     cvt.rna.tf32.f32 written as an integer add and mask: the splits are
-//     most of the kernel's instructions, and sm_90a expands the cvt into 4;
-//   - ldmatrix moves only b16 elements, so fragments are plain shared loads.
-//     Each product runs over its inner index in an order permuted within
-//     groups of 8 (the fragments' t and t + 4 read 2t and 2t + 1), the same
-//     for both operands: Q and K fragments are then one float2 read each, on
-//     32 banks with rows padded by 8 floats, and P's m16n8 C fragment
-//     (columns 2t, 2t + 1) already is its A fragment, so P stays in registers
-//     without a shuffle; V, read at key 2t and column g, is padded by 4
-//     floats;
-//   - Q is split again on every KV tile: split Q would not fit beside the
-//     K and V tiles at HD = 256;
-//   - the split and mma helpers live in tf32_mma.cuh; where the caller
-//     passes an lse buffer (training), group 0 writes each row's
-//     log-sum-exp m + log2(l) after the merge, in the log2 domain of the
-//     scores, so the backward need not recompute it.
+// flash_fwd_tf32, f32 (3xTF32 on tf32 wgmma, warp-specialised and
+// persistent like flash_fwd_wgmma):
+//   - products: every one is wgmma.mma_async m64nNk8 .tf32 as 3xTF32
+//     (hopper.cuh's wgmma_3xtf32: small(A) big(B) + big(A) small(B), then
+//     + big(A) big(B); small * small is dropped, as in CUTLASS's fast-f32
+//     GEMMs): about f32 accuracy, where one TF32 product on either matmul
+//     misses the 1e-4 tolerance. The bound is the TF32 tensor-core rate
+//     over 3 (494.7 / 3 TFLOP/s);
+//   - layout: tf32 wgmma reads A and B K-major only. S = Q K^T takes A from
+//     registers, each lane's Q values loaded from the raw f32 Q tile that
+//     TMA lands and split there (big = x rounded to TF32, small = x - big),
+//     in chunks of 4 k-steps whose A fragments load while the chunk before
+//     runs, in two register sets named at compile time; B is K's halves.
+//     O += P V takes A from the score registers: with the keys of a k-step
+//     permuted within each 8 (kpos: k index t is key 2t, t + 4 is 2t + 1),
+//     the C fragment of S is P's A fragment, split in registers; B is V^T's
+//     halves, K-major over the keys in that permutation;
+//   - a pre-pass, flash_fwd_prep_kv, writes K's and V^T's TF32 halves once
+//     a call, (B, Hk, 2, S, D8) and (B, Hk, 2, Dv, ld) (hopper.cuh's
+//     split_keys, the backward's pre-pass too), so that every B tile is an
+//     exact TF32 value: 4 bytes read and 16 written for each element of K
+//     and V (at MLA's heads 0.09 ms of bytes at 3.35 TB/s);
+//   - one block of 384 threads an SM, taking work items (batch*head, query
+//     tile) in turn: a unit is a head's heaviest and lightest tiles left,
+//     head by head, where there are as many such pairs as SMs, or one tile,
+//     every head's heaviest first, unless the other deal leaves the busiest
+//     block fewer KV tiles (computed at launch). One producer
+//     warpgroup, whose first thread keeps K's and V^T's halves in flight by
+//     TMA through a ring of ST stages that runs on across items (full and
+//     empty mbarriers per stage, K and V^T on barriers of their own, so that
+//     K is released as soon as Q K^T has read it) and loads each item's Q
+//     once the last item's is free; two consumer warpgroups. setmaxnreg
+//     hands the producer's registers to the consumers (24 and 240 a thread);
+//   - a consumer issues Q K^T of tile i, then P V of tile i - 1, and runs
+//     the online softmax of tile i while that P V finishes
+//     (flash_fwd_wgmma's, in the log2 domain with the -1e30 sentinel on
+//     the tiles that cross an edge of the band or S; ex2.approx; P kept in
+//     f32); then it rescales O (a warp whose rows kept their maxima skips
+//     it: a multiply by 1 leaves the bits) and splits P for the next P V;
+//     f32 m, l and O, l clamped at 1e-30; each lane stores its
+//     normalised rows as 8-byte pairs (rows past S and columns past Dv are
+//     not written) and, where the caller passes an lse buffer (training),
+//     each row's log-sum-exp m + log2(l) in the log2 domain of the scores,
+//     which the backward reads;
+//   - tiles, widths and budgets (shared memory: the Q tile BQ x QW x 4
+//     bytes, ST stages of K's halves BK x QW x 8 and V^T's DV x BK x 8):
+//       D = Dv = 64 (musicgen-large): 128-row items, each consumer 64 rows;
+//         64-key tiles, 2 stages: 160 KiB;
+//       D = 96, Dv = 64 (minicpm3-4b's MLA): 128 rows, 64 keys, 2 stages,
+//         Q K^T 96 deep and P V 64 wide, not 128: 208 KiB;
+//       D = Dv = 128 (qwen2-vl-2b): 128 rows, 32 keys, 2 stages: 192 KiB;
+//       D = Dv = 256 (gemma3-1b): a 64-row Q tile is 64 KiB and one stage
+//         of 32 keys 128 KiB, so 128-row items do not fit. An item is 64
+//         rows, which both consumers take: consumer c runs Q K^T over head
+//         dims 128 c.. (16 k-steps, m64n32k8) and P V for O's columns 128
+//         c..; each tile the two add their partial scores through shared
+//         memory (one named barrier a tile) and run the same softmax, so m
+//         and l agree and no merge is needed. That halves the Q fragments a
+//         consumer loads and splits a tile, and O's registers, and gives
+//         gemma3-1b's 16 heads of 1024 rows 256 items for the 132 SMs
+//         instead of 128: 225 KiB, one stage (K of the next tile loads
+//         while P V runs, V^T while Q K^T runs);
+//       other widths (D and Dv multiples of 4) run the instantiation of
+//         their head tile (64, 128, 256) with D and Dv read at run time;
+//     products run D deep rounded up to 8 and Dv wide rounded up to the
+//     64-column chunks of O (the last one 16 or 32 wide where that
+//     suffices): flash_attention.product_widths;
+//   - no atomics, and every sum runs in a fixed order, so two launches give
+//     the same bits.
 // Both read kv head h / (H / Hk) directly instead of a copy (GQA), take any
 // S (the ragged last tile is masked), Dv != D, and strided q, k, v with a
 // unit last dimension, 16-byte aligned pointers and row strides, which the
@@ -118,7 +145,6 @@
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
-#include "tf32_mma.cuh"
 
 namespace {
 
@@ -138,370 +164,6 @@ struct Params {
   int window;  // <= 0: no window
   float* lse;  // (B, H, S) contiguous, or null; f32 only
 };
-
-// ---------------------------------------------------------------------------
-// f32: flash_fwd_tf32
-// ---------------------------------------------------------------------------
-
-namespace mma {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBQ = 16 * kWarps;  // query rows per block, 16 a warp
-
-__device__ __forceinline__ unsigned saddr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-fills the 16 bytes when !ok.
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// ROWS rows of `cols` (a multiple of 16 bytes) elements from global rows
-// row0.. of stride ss into a tile of HD columns and row stride LD, copied by
-// THREADS threads, of which this is thread tid; rows >= S and columns >=
-// cols are zero-filled.
-template <int ROWS, int HD, int LD, int THREADS = kThreads, typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss,
-                                          int row0, int S, int cols,
-                                          int tid) {
-  constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte chunk
-  constexpr int kChunks = HD / kVec;    // 16-byte chunks a row
-  static_assert(ROWS * kChunks % THREADS == 0, "whole rounds of copies");
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
-    const int c = tid + i * THREADS;
-    const int r = c / kChunks, col = (c - r * kChunks) * kVec;
-    const bool ok = row0 + r < S && col < cols;
-    const T* g = ok ? src + (row0 + r) * ss + col : src;
-    cp_async16(saddr(dst + r * LD + col), g, ok);
-  }
-}
-
-// The f32 kernel runs two groups of 4 warps a block: both own the block's
-// 64 query rows, each takes every other KV tile of the band into its own K
-// and V buffers, and their softmax states are merged at the end. That gives
-// an SM 8 warps, where one 4-warp block fills its shared memory at HD = 256.
-constexpr int kGroups = 2;
-
-// HD: padded head dim (a multiple of 8 covering D and Dv); BK: keys a tile.
-// The padding of a row puts the fragment reads of a warp on 32 banks: Q and
-// K are read as float2 at row g, column 2t (a stride = 8 mod 32 floats), V
-// as float at key 2t, column g (a stride = 4 mod 32).
-template <int HD, int BK>
-struct TileF32 {
-  static constexpr int kLdQK = HD + 8;
-  static constexpr int kLdV = HD + 4;
-  static constexpr int kQ = kBQ * kLdQK;
-  static constexpr int kK = BK * kLdQK;
-  static constexpr int kV = BK * kLdV;
-  static constexpr size_t kBytes =
-      sizeof(float) * (kQ + kGroups * (kK + kV));
-};
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// the 4 warps of one group
-__device__ __forceinline__ void group_sync(int group) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(kThreads)
-               : "memory");
-}
-
-template <int HD, int BK>
-__global__ void __launch_bounds__(kGroups * kThreads)
-    flash_fwd_tf32(Params p) {
-  using T = TileF32<HD, BK>;
-  constexpr int kLdQK = T::kLdQK, kLdV = T::kLdV;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  const int group = threadIdx.x / kThreads;
-  const int tid = threadIdx.x % kThreads;  // thread in the group
-  float* Ks = Qs + T::kQ + group * (T::kK + T::kV);  // this group's tiles
-  float* Vs = Ks + T::kK;
-
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh - b * p.H;
-  const int hk = h / p.group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tq = lane % 4;  // fragment row and column group
-  const int S = p.S;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  // KV tiles that the causal band and the window band reach; this group
-  // takes t_lo + group, t_lo + group + 2, ...
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int kv_hi = p.causal ? q_last + 1 : S;
-  const int kv_lo = p.window > 0 ? max(q0 - p.window + 1, 0) : 0;
-  const int t_lo = kv_lo / BK;
-  const int t_hi = (kv_hi + BK - 1) / BK;
-
-  // Copies are committed in pairs, K then V, so that at the top of the
-  // loop this thread has at most K_t and V_t in flight, and waiting for
-  // all but the newest group lands K_t, then (after K_{t+2} is issued) V_t.
-  load_tile<kBQ, HD, kLdQK, kGroups * kThreads>(Qs, q, p.q_ss, q0, S, p.D,
-                                                threadIdx.x);
-  cp_async_commit();
-  const int t0 = t_lo + group;
-  if (t0 < t_hi)
-    load_tile<BK, HD, kLdQK>(Ks, k, p.k_ss, t0 * BK, S, p.D, tid);
-  cp_async_commit();
-  if (t0 < t_hi)
-    load_tile<BK, HD, kLdV>(Vs, v, p.v_ss, t0 * BK, S, p.Dv, tid);
-  cp_async_commit();
-  cp_async_wait_one();
-  __syncthreads();  // Q (copied by both groups) and the first K tiles are in
-
-  // this lane's C-fragment rows: r0 (c0, c1) and r0 + 8 (c2, c3)
-  const int r0 = q0 + warp * 16 + g;
-  const float scale = p.scale * 1.4426950408889634f;  // log2(e) folded in
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this lane's share; the quad's sum at the end
-
-  // Both products run over their inner index (head dims for Q K^T, keys for
-  // P V) in an order permuted within each group of 8: the m16n8k8 fragments'
-  // inner indices t and t + 4 are taken from 2t and 2t + 1. Both operands
-  // share the permutation, so the sums are the same; Q and K fragments are
-  // float2 reads, and P's C fragment (columns 2t, 2t + 1) is its A fragment.
-  const float* q_lane = Qs + (warp * 16 + g) * kLdQK + 2 * tq;
-  const float* k_lane = Ks + g * kLdQK + 2 * tq;
-  const float* v_lane = Vs + 2 * tq * kLdV + g;
-
-  for (int t = t0; t < t_hi; t += kGroups) {
-    cp_async_wait_one();
-    group_sync(group);  // K_t is in
-    const int k0 = t * BK;
-
-    // S = Q K^T: 16 rows x BK keys a warp, n-block j = keys 8j..8j+7; Q is
-    // split again on every tile
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < HD / 8; ++kc) {
-      const float2 qa = *reinterpret_cast<const float2*>(q_lane + kc * 8);
-      const float2 qb =
-          *reinterpret_cast<const float2*>(q_lane + 8 * kLdQK + kc * 8);
-      uint32_t a_big[4], a_small[4];
-      split_tf32(qa.x, a_big[0], a_small[0]);  // row g, index t
-      split_tf32(qb.x, a_big[1], a_small[1]);  // row g + 8, index t
-      split_tf32(qa.y, a_big[2], a_small[2]);  // row g, index t + 4
-      split_tf32(qb.y, a_big[3], a_small[3]);  // row g + 8, index t + 4
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb) {
-        const float2 kb = *reinterpret_cast<const float2*>(
-            k_lane + nb * 8 * kLdQK + kc * 8);
-        uint32_t b_big[2], b_small[2];
-        split_tf32(kb.x, b_big[0], b_small[0]);  // key g, index t
-        split_tf32(kb.y, b_big[1], b_small[1]);  // key g, index t + 4
-        mma_3xtf32(s[nb], a_big, a_small, b_big, b_small);
-      }
-    }
-    group_sync(group);  // every warp of the group is done with K_t
-    if (t + kGroups < t_hi)
-      load_tile<BK, HD, kLdQK>(Ks, k, p.k_ss, (t + kGroups) * BK, S, p.D,
-                               tid);
-    cp_async_commit();
-
-    // scale, then the mask where the tile crosses an edge of the band or S
-    const bool edge = k0 + BK > S || (p.causal && k0 + BK - 1 > q0) ||
-                      (p.window > 0 && q0 + kBQ - 1 - k0 >= p.window);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[j][i] * scale;
-        if (edge) {
-          const int qp = r0 + (i / 2) * 8;
-          const int kp = k0 + j * 8 + tq * 2 + (i % 2);
-          const bool ok = kp < S && (!p.causal || kp <= qp) &&
-                          (p.window <= 0 || qp - kp < p.window);
-          if (!ok) x = kNegInf;
-        }
-        s[j][i] = x;
-      }
-
-    // online softmax, two rows a lane
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      corr[r] = exp2f(m[r] - mx);
-      m[r] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        s[j][2 * r] = exp2f(s[j][2 * r] - mx);
-        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - mx);
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      l[r] = l[r] * corr[r] + sum;
-    }
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-
-    cp_async_wait_one();
-    group_sync(group);  // V_t is in
-    // O += P V: the C fragment of keys 8j..8j+7 is the A fragment of the
-    // permuted keys (index t = key 2t, index t + 4 = key 2t + 1)
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      uint32_t a_big[4], a_small[4];
-      split_tf32(s[j][0], a_big[0], a_small[0]);  // row g, key 2t
-      split_tf32(s[j][2], a_big[1], a_small[1]);  // row g + 8, key 2t
-      split_tf32(s[j][1], a_big[2], a_small[2]);  // row g, key 2t + 1
-      split_tf32(s[j][3], a_big[3], a_small[3]);  // row g + 8, key 2t + 1
-      const float* vj = v_lane + j * 8 * kLdV;
-#pragma unroll
-      for (int nb = 0; nb < HD / 8; ++nb) {
-        uint32_t b_big[2], b_small[2];
-        split_tf32(vj[nb * 8], b_big[0], b_small[0]);  // key 2t, column g
-        split_tf32(vj[kLdV + nb * 8], b_big[1], b_small[1]);  // key 2t + 1
-        mma_3xtf32(acc[nb], a_big, a_small, b_big, b_small);
-      }
-    }
-    group_sync(group);  // every warp of the group is done with V_t
-    if (t + kGroups < t_hi)
-      load_tile<BK, HD, kLdV>(Vs, v, p.v_ss, (t + kGroups) * BK, S, p.Dv,
-                              tid);
-    cp_async_commit();
-  }
-
-  // Merge: group 1 hands its m, l and O fragments to group 0 through the
-  // K and V buffers (lane-major, so neither side has a bank conflict);
-  // group 0 rescales both to the larger m and adds them.
-  cp_async_wait_all();
-  __syncthreads();
-  constexpr int kX = (HD / 2 + 4) * 32;  // floats a warp hands over
-  float* X = Qs + T::kQ + warp * kX + lane;
-  if (group == 1) {
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) X[(j * 4 + i) * 32] = acc[j][i];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      X[(HD / 2 + r) * 32] = m[r];
-      X[(HD / 2 + 2 + r) * 32] = l[r];
-    }
-  }
-  __syncthreads();
-  if (group == 1) return;
-  float c0[2], c1[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m1 = X[(HD / 2 + r) * 32];
-    const float mx = fmaxf(m[r], m1);
-    c0[r] = exp2f(m[r] - mx);
-    c1[r] = exp2f(m1 - mx);
-    l[r] = l[r] * c0[r] + X[(HD / 2 + 2 + r) * 32] * c1[r];
-    m[r] = mx;
-  }
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      acc[j][i] = acc[j][i] * c0[i / 2] + X[(j * 4 + i) * 32] * c1[i / 2];
-
-  // normalise, stage the warp's 16 rows in its own rows of the Q tile (only
-  // this warp read them), and store them as 16-byte chunks
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    sum = fmaxf(sum, 1e-30f);
-    inv[r] = 1.f / sum;
-    // the row's log-sum-exp for the backward, in the log2 domain of the
-    // scores (scale * log2(e) folded in): log2 sum_j 2^(s_ij scale log2 e)
-    const int qp = q0 + warp * 16 + g + 8 * r;
-    if (p.lse != nullptr && tq == 0 && qp < S)
-      p.lse[static_cast<long long>(bh) * S + qp] = m[r] + log2f(sum);
-  }
-  float* Ow = Qs + warp * 16 * kLdQK;
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(Ow + (g + 8 * r) * kLdQK + j * 8 + 2 * tq) =
-          make_float2(acc[j][2 * r] * inv[r], acc[j][2 * r + 1] * inv[r]);
-  __syncwarp();
-  constexpr int kChunks = HD / 4;
-#pragma unroll
-  for (int i = 0; i < 16 * kChunks / 32; ++i) {
-    const int c = lane + i * 32;
-    const int r = c / kChunks, col = (c - r * kChunks) * 4;
-    const int qp = q0 + warp * 16 + r;
-    if (qp < S && col < p.Dv)
-      *reinterpret_cast<float4*>(o + qp * p.o_ss + col) =
-          *reinterpret_cast<const float4*>(Ow + r * kLdQK + col);
-  }
-}
-
-// One launch of `kernel` with `smem` bytes of dynamic shared memory: a
-// block of `threads` per (batch*head, 64-row query tile).
-int launch(void (*kernel)(Params), int threads, size_t smem, const Params& p,
-           int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * p.H, (p.S + kBQ - 1) / kBQ);
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int HD, int BK>
-int launch_f32(const Params& p, int B, cudaStream_t stream) {
-  return launch(flash_fwd_tf32<HD, BK>, kGroups * kThreads,
-                TileF32<HD, BK>::kBytes, p, B, stream);
-}
-
-}  // namespace mma
-
-// f32 tiles: 90,112 bytes of shared memory at HD = 64, 103,424 at 128,
-// 201,728 at 256; 256 threads a block.
-int launch_tf32(const Params& p, int B, cudaStream_t stream) {
-  if (p.D % 4 || p.Dv % 4) return static_cast<int>(cudaErrorInvalidValue);
-  const int hd = p.D > p.Dv ? p.D : p.Dv;
-  if (hd <= 64) return mma::launch_f32<64, 64>(p, B, stream);
-  if (hd <= 128) return mma::launch_f32<128, 32>(p, B, stream);
-  return mma::launch_f32<256, 32>(p, B, stream);
-}
 
 // ---------------------------------------------------------------------------
 // bf16: flash_fwd_wgmma
@@ -1058,6 +720,651 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   return wg::launch<256, 64>(p, B, stream);
 }
 
+// ---------------------------------------------------------------------------
+// f32: flash_fwd_prep_kv, then flash_fwd_tf32
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+using namespace hopper;
+
+constexpr int kThreads = 384;    // the producer warpgroup, then two consumers
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 24 * 128 + 240 * 256 <= 65,536
+
+struct Args {
+  int B, H, group, S, D, Dv;
+  float scale;  // log2(e) folded in
+  int causal;
+  int window;    // <= 0: no window
+  int units;     // work units, each of per_unit items (see decode)
+  int per_unit;  // 1 or 2
+  float* o;
+  long long o_sb, o_sh, o_ss;
+  float* lse;  // (B, H, S) contiguous, or null
+};
+
+// K into its TF32 halves, (B, Hk, 2, S, D8) with D8 = D rounded up to 8,
+// columns permuted within each 8; V into V^T's, (B, Hk, 2, Dv, ld), keys
+// permuted within each 8 and zero from S to ld: 32 keys of one (b, kv
+// head) a block, blockIdx.z 0 for K, 1 for V (hopper.cuh's split_keys, as
+// the backward's pre-pass). 256 threads.
+__global__ void __launch_bounds__(256)
+    flash_fwd_prep_kv(Params p, float* kv, float* vt, int ld) {
+  __shared__ float tile[32][33];
+  const int Hk = p.H / p.group;
+  const int k0 = blockIdx.x * 32, bhk = blockIdx.y;
+  const int b = bhk / Hk, hk = bhk - b * Hk;
+  if (blockIdx.z == 0)
+    split_keys(static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh,
+               p.k_ss, p.S, p.D, k0, kv + 2ll * bhk * p.S * ((p.D + 7) & ~7),
+               nullptr, ld, tile);
+  else
+    split_keys(static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh,
+               p.v_ss, p.S, p.Dv, k0, nullptr, vt + 2ll * bhk * p.Dv * ld,
+               ld, tile);
+}
+
+// Byte offsets from the 1024-aligned base of shared memory, for items of BQ
+// query rows, Q and K tiles QW columns wide (32-column atoms), key tiles of
+// BK keys and V^T tiles of DV rows (32-key atoms), ST stages: the Q tile
+// (raw f32), each stage's K halves (big, then small) and V^T halves, at BQ
+// = 64 (the consumers split the head dims) each consumer's partial scores
+// of the last two tiles, then the barriers: q_full, q_empty, and k_full,
+// v_full, k_empty, v_empty for each stage.
+template <int BQ, int QW, int DV, int BK, int ST>
+struct Smem {
+  static constexpr int kQAtom = BQ * 128;
+  static constexpr int kKAtom = BK * 128;
+  static constexpr int kVAtom = DV * 128;
+  static constexpr int kKHalf = QW / 32 * kKAtom;
+  static constexpr int kVHalf = BK / 32 * kVAtom;
+  static constexpr int kXTile = BQ * BK * 4;  // one partial score tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + QW / 32 * kQAtom;
+  static constexpr int kV = kK + ST * 2 * kKHalf;
+  static constexpr int kX = kV + ST * 2 * kVHalf;
+  static constexpr int kBar = kX + (BQ == 64 ? 4 * kXTile : 0);
+  static constexpr size_t kBytes = 1024 + kBar + 8 * (2 + 4 * ST);
+};
+
+// One work item: the query tile of BQ rows at q0 of batch b, head h, and
+// the KV tiles t_lo .. t_hi - 1 that its causal and window bands reach.
+// Blocks take work units in turn (unit blockIdx.x, + gridDim.x, ...). A
+// unit is either the pair (n_qt - 1 - r, r) of a head's query tiles, which
+// weighs the same for every r under the causal band, head by head, so
+// that the blocks running at one time share the K and V halves of a few
+// heads in L2; or one query tile, every head's heaviest tiles first (the
+// launch picks the deal, see launch).
+// Returns false for the second half of the middle pair of an odd n_qt.
+struct Item {
+  int b, h, q0, t_lo, t_hi;
+};
+
+template <int BQ, int BK>
+__device__ __forceinline__ bool decode(const Args& p, int u, int half,
+                                       Item& x) {
+  const int n_qt = (p.S + BQ - 1) / BQ;
+  int bh, qt;
+  if (p.per_unit == 2) {
+    const int per_head = (n_qt + 1) / 2;
+    bh = u / per_head;
+    const int r = u - bh * per_head;
+    qt = half ? r : n_qt - 1 - r;
+    if (half && qt == n_qt - 1 - r) return false;
+  } else {
+    const int heads = p.B * p.H, r = u / heads;
+    bh = u - r * heads;
+    qt = n_qt - 1 - r;
+  }
+  x.b = bh / p.H;
+  x.h = bh - x.b * p.H;
+  x.q0 = qt * BQ;
+  const int q_last = min(x.q0 + BQ, p.S) - 1;
+  const int kv_hi = p.causal ? q_last + 1 : p.S;
+  const int kv_lo = p.window > 0 ? max(x.q0 - p.window + 1, 0) : 0;
+  x.t_lo = kv_lo / BK;
+  x.t_hi = (kv_hi + BK - 1) / BK;
+  return true;
+}
+
+// sc = Q K^T for one consumer warpgroup, or (KMAX < QW / 8) its share of
+// the head dims: A is its 64 rows of the raw f32 Q tile (BQ rows at offset
+// q from base, from row qrow), each lane's values loaded (columns 2t, 2t +
+// 1 of a k-step as k indices t, t + 4) and split into TF32 halves in
+// registers; B is the K stage's halves (big at the shared address kb,
+// small a half further). KS k-steps of 8 columns from k-step k0 (KS = 0:
+// ks of them, at most KMAX, read at run time). The A fragments of 4
+// k-steps load and split while the products of the 4 before run, in two
+// register sets named at compile time. Returns with the last two chunks'
+// products in flight.
+template <int BQ, int QW, int BK, int KMAX, int KS>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2],
+                                         const unsigned char* sm, uint32_t q,
+                                         uint32_t kb, int k0, int ks,
+                                         int qrow, int warp, int lane) {
+  constexpr int kMax = KS > 0 ? KS : KMAX;
+  constexpr int kHalf = QW / 32 * BK * 128;
+  const int n = KS > 0 ? KS : ks;
+  const int r0 = qrow + 16 * warp + lane / 4, t = lane % 4;
+  if (KS == 0 && n <= 0) {  // no head dims of this consumer's share
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+    return;
+  }
+  uint32_t fb[2][4][4], fs[2][4][4];
+#pragma unroll
+  for (int ch = 0; ch < (kMax + 3) / 4; ++ch) {
+    uint32_t(&ab)[4][4] = fb[ch & 1];
+    uint32_t(&as)[4][4] = fs[ch & 1];
+    if (ch >= 2) wgmma_wait<1>();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int jj = 4 * ch + j, c0 = 8 * (k0 + jj) + 2 * t;
+      if (jj < kMax && jj < n) {
+        const float2 lo = lds2(sm, q + tile_at<BQ>(r0, c0));
+        const float2 hi = lds2(sm, q + tile_at<BQ>(r0 + 8, c0));
+        const float xv[4] = {lo.x, hi.x, lo.y, hi.y};
+        split4(xv, ab[j], as[j]);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int jj = 4 * ch + j, kk = k0 + jj;
+      if (jj < kMax && jj < n) {
+        const uint32_t off = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+        wgmma_3xtf32(sc, ab[j], as[j], desc_sw128(kb + off),
+                     desc_sw128(kb + kHalf + off), jj > 0);
+      }
+    }
+    wgmma_commit();
+  }
+}
+
+// o += P V for one consumer: P's k-step j (keys 8j..8j+7 of the tile) is
+// the A fragment {sc[4j], sc[4j + 2], sc[4j + 1], sc[4j + 3]} split into
+// pb[j], ps[j] (V^T's keys are permuted within each 8 to match); B is the
+// V^T stage's halves (big at vb, small a half further), whose rows v0 + 64
+// m.. are o's chunk m. VN > 0: every chunk 64 wide; VN = 0: nv chunks at
+// run time, the last lw = 16, 32 or 64 wide.
+template <int DV, int BK, int NC, int VN>
+__device__ __forceinline__ void issue_pv(float (&o)[NC][32],
+                                         const uint32_t (&pb)[BK / 8][4],
+                                         const uint32_t (&ps)[BK / 8][4],
+                                         uint32_t vb, int v0, int nv,
+                                         int lw) {
+  constexpr int kHalf = BK / 32 * DV * 128;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const uint32_t koff = (8 * j / 32) * (DV * 128) + (8 * j % 32) * 4;
+#pragma unroll
+    for (int mc = 0; mc < NC; ++mc) {
+      const uint32_t off = koff + (v0 + mc * 64) * 128;
+      const uint64_t bb = desc_sw128(vb + off);
+      const uint64_t bs = desc_sw128(vb + kHalf + off);
+      if constexpr (VN > 0) {
+        wgmma_3xtf32(o[mc], pb[j], ps[j], bb, bs, 1);
+      } else if (mc < nv) {
+        const int w = mc + 1 < nv ? 64 : lw;
+        if (w == 16)
+          wgmma_3xtf32(reinterpret_cast<float(&)[8]>(o[mc]), pb[j], ps[j],
+                       bb, bs, 1);
+        else if (w == 32)
+          wgmma_3xtf32(reinterpret_cast<float(&)[16]>(o[mc]), pb[j], ps[j],
+                       bb, bs, 1);
+        else
+          wgmma_3xtf32(o[mc], pb[j], ps[j], bb, bs, 1);
+      }
+    }
+  }
+}
+
+// The online softmax of one consumer's score tile (raw Q K^T in sc), two
+// rows a lane (r0 and r0 + 8; keys k0 + 8j + 2 (lane % 4) and the next), as
+// flash_fwd_wgmma's softmax_tile: m, l and corr in the log2 domain of the
+// scaled scores; a tile inside the band and S (kEdge false) takes max and
+// exponent from the raw scores, the scale folded into one fma; a tile on
+// an edge scales first and sets what the mask drops to the -1e30
+// sentinel, so a row masked so far takes p = 1 and is wiped by corr = 0
+// later, as in the reference. P stays in sc, in f32.
+template <int BK, bool kEdge>
+__device__ __forceinline__ void softmax(float (&sc)[BK / 2], float (&m)[2],
+                                        float (&l)[2], float (&corr)[2],
+                                        const Args& p, int r0, int k0,
+                                        int lane) {
+  if (kEdge) {
+    // key k0 + kb + col (col = 8j + e % 2, known at compile time) is kept
+    // for row r0 + 8 (e / 2) where lo[e / 2] <= col <= hi[e / 2]
+    const int kb = k0 + (lane % 4) * 2;
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = r0 + 8 * r;
+      hi[r] = p.S - 1 - kb;
+      if (p.causal) hi[r] = min(hi[r], qp - kb);
+      lo[r] = p.window > 0 ? qp - kb - p.window + 1 : -(1 << 30);
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + e % 2;
+        const bool ok = col >= lo[e / 2] && col <= hi[e / 2];
+        sc[4 * j + e] = ok ? sc[4 * j + e] * p.scale : kNegInf;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(m[r], kEdge ? mx : mx * p.scale);
+    corr[r] = wg::ex2(m[r] - mx);
+    m[r] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        const float x = sc[4 * j + e];
+        sc[4 * j + e] = wg::ex2(kEdge ? x - mx : x * p.scale - mx);
+        sum += sc[4 * j + e];
+      }
+    l[r] = l[r] * corr[r] + sum;
+  }
+}
+
+// BQ: query rows an item: 128, each consumer warpgroup taking 64 of them;
+// or 64, both taking all 64, consumer c computing Q K^T over its half of
+// the head dims (columns 128 c..) and P V for its half of O's columns
+// (128 c..): each tile the two add their partial scores in a fixed order
+// through shared memory and both run the same softmax. QW: the Q and K
+// tiles' columns (D rounded up to 32); DV: V^T's rows (Dv rounded up to
+// 64); BK: keys a tile; ST: stages of the K and V^T ring; KS: k-steps of
+// Q K^T (ceil(D / 8)) and VN: Dv, each 0 where read at run time. The
+// common widths get their own instantiation, so that their products run
+// without branches between them. A block stays on its SM and takes work
+// units in turn (see decode); the ring and the barriers' phases run on
+// across items.
+template <int BQ, int QW, int DV, int BK, int ST, int KS, int VN>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_tf32(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, Args p) {
+  constexpr bool kHalves = BQ == 64;  // the consumers split the head dims
+  constexpr int kWays = kHalves ? 2 : 1;
+  constexpr int NC = (DV + 63) / 64 / kWays;  // 64-column chunks of O
+  constexpr int KMAX = QW / 8 / kWays;        // k-steps of a consumer
+  constexpr int KC = KS / kWays;
+  static_assert(VN == 0 || (VN == DV && DV % (64 * kWays) == 0),
+                "P V's widths");
+  static_assert(KS % kWays == 0 && (!kHalves || QW % 16 == 0), "halves");
+  using L = Smem<BQ, QW, DV, BK, ST>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sm = smem_raw + (base - raw);
+  const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
+  auto k_full = [&](int s) { return q_full + 8 * (2 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (2 + ST + s); };
+  auto k_empty = [&](int s) { return q_full + 8 * (2 + 2 * ST + s); };
+  auto v_empty = [&](int s) { return q_full + 8 * (2 + 3 * ST + s); };
+  const int S = p.S;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // lane 0 of each consumer warp
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 8);
+      mbar_init(v_empty(s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // the producer: one thread keeps the ring of K and V^T halves full, and
+    // loads each item's Q once the last one's is free
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&tq);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      const int atoms = (p.D + 31) / 32;  // of Q, and of K's halves
+      int it = 0;     // KV tiles through the ring so far
+      int round = 0;  // items so far
+      for (int k = 0;; ++k) {  // the block's item slots, unit by unit
+        const int u = blockIdx.x + k / p.per_unit * gridDim.x;
+        if (u >= p.units) break;
+        Item x;
+        if (!decode<BQ, BK>(p, u, k % p.per_unit, x)) continue;
+        const int hk = x.h / p.group;
+        for (int t = x.t_lo; t < x.t_hi; ++t, ++it) {
+          const int s = it % ST, parity = ((it / ST) & 1) ^ 1;
+          const uint32_t ks = base + L::kK + 2 * s * L::kKHalf;
+          mbar_wait(k_empty(s), parity);
+          mbar_expect_tx(k_full(s), 2 * atoms * L::kKAtom);
+          for (int a = 0; a < atoms; ++a)
+            for (int hf = 0; hf < 2; ++hf)
+              tma_load(ks + hf * L::kKHalf + a * L::kKAtom, &tk, k_full(s),
+                       32 * a, t * BK, 2 * hk + hf, x.b);
+          if (t == x.t_lo) {  // Q after the item's first K
+            mbar_wait(q_empty, (round & 1) ^ 1);
+            mbar_expect_tx(q_full, atoms * L::kQAtom);
+            for (int a = 0; a < atoms; ++a)
+              tma_load(base + L::kQ + a * L::kQAtom, &tq, q_full, 32 * a,
+                       x.q0, x.h, x.b);
+          }
+          const uint32_t vs = base + L::kV + 2 * s * L::kVHalf;
+          mbar_wait(v_empty(s), parity);
+          mbar_expect_tx(v_full(s), 2 * L::kVHalf);
+          for (int a = 0; a < BK / 32; ++a)
+            for (int hf = 0; hf < 2; ++hf)
+              tma_load(vs + hf * L::kVHalf + a * L::kVAtom, &tv, v_full(s),
+                       t * BK + 32 * a, 0, 2 * hk + hf, x.b);
+        }
+        ++round;
+      }
+    }
+  } else {
+    // a consumer warpgroup: 64 query rows of each item
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int qrow = kHalves ? 0 : 64 * c;  // its first row of the Q tile
+    // its first k-step of Q K^T and first column of O, and how many
+    const int k0 = kHalves ? c * KMAX : 0;
+    const int v0 = kHalves ? c * (DV / 2) : 0;
+    const int ks = KS > 0 ? KC : min(max((p.D + 7) / 8 - k0, 0), KMAX);
+    const int dv = VN > 0 ? VN / kWays : min(max(p.Dv - v0, 0), 64 * NC);
+    const int nv = (dv + 63) / 64;  // chunks of O, the last lw wide
+    const int last = dv - 64 * (nv - 1);
+    const int lw = last <= 16 ? 16 : last <= 32 ? 32 : 64;
+    int it = 0;     // KV tiles through the ring so far
+    int round = 0;  // items so far
+    for (int k = 0;; ++k) {  // the same slots as the producer's
+      const int u = blockIdx.x + k / p.per_unit * gridDim.x;
+      if (u >= p.units) break;
+      Item x;
+      if (!decode<BQ, BK>(p, u, k % p.per_unit, x)) continue;
+      const int qc = x.q0 + qrow;                // the warpgroup's first row
+      const int r0 = qc + warp * 16 + lane / 4;  // this lane's rows r0, r0 + 8
+      const int n = x.t_hi - x.t_lo;
+      auto stage = [&](int i) { return (it + i) % ST; };
+      auto phase = [&](int i) { return ((it + i) / ST) & 1; };
+      // does tile t cross an edge of the band or S for these rows?
+      auto edge = [&](int t) {
+        const int first = t * BK;
+        return first + BK > S || (p.causal && first + BK - 1 > qc) ||
+               (p.window > 0 && qc + 63 - first >= p.window);
+      };
+
+      float o[NC][32];
+#pragma unroll
+      for (int a = 0; a < NC; ++a) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
+        fence_regs(o[a]);
+      }
+      float m[2] = {kNegInf, kNegInf};
+      float l[2] = {0.f, 0.f};  // this lane's share; the quad's at the end
+      float sc[BK / 2], corr[2];
+      uint32_t pb[BK / 8][4], ps[BK / 8][4];
+
+      // Tile i: Q K^T of tile i, then P V of tile i - 1 behind it; the
+      // softmax of tile i runs while that P V finishes. The first tile's
+      // Q K^T and the last tile's P V run alone, so that no product sits
+      // in a branch, and every wait comes before the products it guards
+      // (a spin on an mbarrier between wgmma.fence and a product makes
+      // ptxas serialize every product: C7520).
+      auto qk = [&](int i) {  // Q K^T of tile i into sc, in flight
+        issue_qk<BQ, QW, BK, KMAX, KC>(
+            sc, sm, L::kQ, base + L::kK + 2 * stage(i) * L::kKHalf, k0, ks,
+            qrow, warp, lane);
+      };
+      auto pv = [&](int i) {  // P V of tile i, its P split in pb, ps
+        issue_pv<DV, BK, NC, VN>(o, pb, ps,
+                                 base + L::kV + 2 * stage(i) * L::kVHalf, v0,
+                                 nv, lw);
+        wgmma_commit();
+      };
+      auto softmax_of = [&](int i) {  // once Q K^T of tile i is complete
+        fence_regs(sc);
+        if (lane == 0) {
+          mbar_arrive(k_empty(stage(i)));  // this warp is done with K
+          if (i == n - 1) mbar_arrive(q_empty);  // ... and with Q
+        }
+        if constexpr (kHalves) {
+          // the scores are the sum of the two consumers' partials, the
+          // same bits in both (lane-major tiles, two of each consumer by
+          // the parity of the ring's tile count, so that one barrier a tile
+          // suffices)
+          const int par = (it + i) & 1;
+          float* mine = reinterpret_cast<float*>(
+                            sm + L::kX + (2 * c + par) * L::kXTile) + tid;
+          const float* other = reinterpret_cast<const float*>(
+                                   sm + L::kX + (2 * (c ^ 1) + par) *
+                                                    L::kXTile) + tid;
+#pragma unroll
+          for (int e = 0; e < BK / 2; ++e) mine[e * 128] = sc[e];
+          named_sync(1, 256);
+#pragma unroll
+          for (int e = 0; e < BK / 2; ++e) sc[e] += other[e * 128];
+        }
+        const int t = x.t_lo + i;
+        if (edge(t))
+          softmax<BK, true>(sc, m, l, corr, p, r0, t * BK, lane);
+        else
+          softmax<BK, false>(sc, m, l, corr, p, r0, t * BK, lane);
+      };
+      auto pv_done = [&](int i) {  // once P V of tile i is complete
+#pragma unroll
+        for (int a = 0; a < NC; ++a) fence_regs(o[a]);
+        if (lane == 0) mbar_arrive(v_empty(stage(i)));  // done with V^T
+      };
+      auto rescale_and_split = [&] {  // O by corr; P into pb, ps
+        // a warp whose rows kept their maxima (corr = 1 exactly) skips the
+        // multiply, which would leave every bit as it is
+        if (!__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) {
+#pragma unroll
+          for (int a = 0; a < NC; ++a)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              o[a][4 * j] *= corr[0];
+              o[a][4 * j + 1] *= corr[0];
+              o[a][4 * j + 2] *= corr[1];
+              o[a][4 * j + 3] *= corr[1];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float xv[4] = {sc[4 * j], sc[4 * j + 2], sc[4 * j + 1],
+                               sc[4 * j + 3]};
+          split4(xv, pb[j], ps[j]);
+        }
+      };
+
+      mbar_wait(q_full, round & 1);
+      mbar_wait(k_full(stage(0)), phase(0));
+      qk(0);
+      wgmma_wait<0>();
+      softmax_of(0);
+      rescale_and_split();
+      for (int i = 1; i < n; ++i) {
+        mbar_wait(k_full(stage(i)), phase(i));
+        mbar_wait(v_full(stage(i - 1)), phase(i - 1));
+        qk(i);
+        pv(i - 1);
+        wgmma_wait<1>();  // Q K^T of tile i is complete
+        softmax_of(i);
+        wgmma_wait<0>();
+        pv_done(i - 1);
+        rescale_and_split();
+      }
+      mbar_wait(v_full(stage(n - 1)), phase(n - 1));
+      wgmma_fence();
+      pv(n - 1);
+      wgmma_wait<0>();
+      pv_done(n - 1);
+      it += n;
+      ++round;
+
+      // normalise, and store this lane's rows as 8-byte pairs (its columns
+      // of them where the consumers split O); rows past S and columns past
+      // Dv are not written
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float sum = l[r];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        sum = fmaxf(sum, 1e-30f);
+        inv[r] = 1.f / sum;
+        // the row's log-sum-exp for the backward, in the log2 domain of the
+        // scores: log2 sum_j 2^(s_ij scale log2 e)
+        const int qp = r0 + 8 * r;
+        if (p.lse != nullptr && lane % 4 == 0 && qp < S &&
+            (!kHalves || c == 0))
+          p.lse[static_cast<long long>(x.b * p.H + x.h) * S + qp] =
+              m[r] + log2f(sum);
+      }
+      float* out = p.o + x.b * p.o_sb + x.h * p.o_sh;
+#pragma unroll
+      for (int a = 0; a < NC; ++a)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = r0 + 8 * r;
+            const int col = v0 + 64 * a + 8 * j + 2 * (lane % 4);
+            if (row < S && col < p.Dv)
+              *reinterpret_cast<float2*>(out + row * p.o_ss + col) =
+                  make_float2(o[a][4 * j + 2 * r] * inv[r],
+                              o[a][4 * j + 2 * r + 1] * inv[r]);
+          }
+    }
+  }
+}
+
+// One call: the pre-pass, then a block of 384 threads per SM (fewer where
+// there are fewer work units), each taking units in turn. kv and vt are
+// the pre-pass's halves of K and V^T (see flash_attention_fwd).
+template <int BQ, int QW, int DV, int BK, int ST, int KS = 0, int VN = 0>
+int launch(const Params& p, int B, float* kv, float* vt,
+           cudaStream_t stream) {
+  const int Hk = p.H / p.group;
+  const int ld = (p.S + 7) & ~7, dp = (p.D + 7) & ~7;
+  // the pre-pass needs no tensor map: the card runs it while they are
+  // encoded
+  flash_fwd_prep_kv<<<dim3((p.S + 31) / 32, B * Hk, 2), 256, 0, stream>>>(
+      p, kv, vt, ld);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap tq, tk, tv;
+  const long long s_k = 4ll * p.S * dp, s_v = 4ll * p.Dv * ld;
+  int err = make_map(&tq, p.q, p.D, p.S, p.H, B, 4 * p.q_ss, 4 * p.q_sh,
+                     4 * p.q_sb, BQ, true);
+  if (!err)
+    err = make_map(&tk, kv, dp, p.S, 2 * Hk, B, 4ll * dp, s_k, 2 * Hk * s_k,
+                   BK, true);
+  if (!err)
+    err = make_map(&tv, vt, ld, p.Dv, 2 * Hk, B, 4ll * ld, s_v,
+                   2 * Hk * s_v, DV, true);
+  if (err) return err;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_qt = (p.S + BQ - 1) / BQ;
+  const int heads = B * p.H, per_head = (n_qt + 1) / 2;
+  // KV tiles of query tile qt (decode's t_hi - t_lo)
+  auto tiles = [&](int qt) {
+    const int q0 = qt * BQ, q_last = (q0 + BQ < p.S ? q0 + BQ : p.S) - 1;
+    const int kv_hi = p.causal ? q_last + 1 : p.S;
+    const int kv_lo = p.window > 0 && q0 - p.window + 1 > 0
+                          ? q0 - p.window + 1 : 0;
+    return (kv_hi + BK - 1) / BK - kv_lo / BK;
+  };
+  // The deal: pairs of a head's heaviest and lightest tiles where there
+  // are as many pairs as SMs (flash_fwd_wgmma's rule), single tiles, every
+  // head's heaviest first, otherwise; unless the other deal's makespan (the
+  // most KV tiles a block takes, blocks taking units in turn) is smaller:
+  // gemma3-1b's global layer, 128 pairs, takes pairs (34 tiles against 48;
+  // at an equal makespan its window-512 layers measured faster as single
+  // tiles).
+  auto makespan = [&](int per_unit, int units) {
+    const int blocks = units < sms ? units : sms;
+    int most = 0;
+    for (int b = 0; b < blocks; ++b) {
+      int sum = 0;
+      for (int u = b; u < units; u += blocks) {
+        if (per_unit == 1) {
+          sum += tiles(n_qt - 1 - u / heads);
+        } else {
+          const int r = u % per_head;
+          sum += tiles(n_qt - 1 - r) + (r != n_qt - 1 - r ? tiles(r) : 0);
+        }
+      }
+      most = sum > most ? sum : most;
+    }
+    return most;
+  };
+  const int pairs = heads * per_head, singles = heads * n_qt;
+  const int by_pairs = makespan(2, pairs), by_singles = makespan(1, singles);
+  const int per_unit = pairs >= sms ? (by_singles < by_pairs ? 1 : 2)
+                                    : (by_pairs < by_singles ? 2 : 1);
+  const int units = per_unit == 2 ? pairs : singles;
+  const Args args{B,        p.H,      p.group,
+                  p.S,      p.D,      p.Dv,
+                  p.scale * 1.4426950408889634f,
+                  p.causal, p.window, units,
+                  per_unit, static_cast<float*>(p.o),
+                  p.o_sb,   p.o_sh,   p.o_ss,
+                  p.lse};
+  auto kernel = flash_fwd_tf32<BQ, QW, DV, BK, ST, KS, VN>;
+  const size_t smem = Smem<BQ, QW, DV, BK, ST>::kBytes;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = units < sms ? units : sms;
+  kernel<<<blocks, kThreads, smem, stream>>>(tq, tk, tv, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf
+
+// f32 tiles (template arguments BQ, QW, DV, BK, ST of tf::launch; shared
+// memory in the header above); 384 threads a block.
+int launch_tf32(const Params& p, int B, float* kv, float* vt,
+                cudaStream_t stream) {
+  if (p.D % 4 || p.Dv % 4 || kv == nullptr || vt == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int hd = p.D > p.Dv ? p.D : p.Dv;
+  if (hd <= 64) {
+    if (p.D == 64 && p.Dv == 64)
+      return tf::launch<128, 64, 64, 64, 2, 8, 64>(p, B, kv, vt, stream);
+    return tf::launch<128, 64, 64, 64, 2>(p, B, kv, vt, stream);
+  }
+  if (hd <= 128) {
+    if (p.D == 128 && p.Dv == 128)
+      return tf::launch<128, 128, 128, 32, 2, 16, 128>(p, B, kv, vt, stream);
+    if (p.D == 96 && p.Dv == 64)  // MLA: 64 nope + 32 rope; v 64
+      return tf::launch<128, 96, 64, 64, 2, 12, 64>(p, B, kv, vt, stream);
+    return tf::launch<128, 128, 128, 32, 2>(p, B, kv, vt, stream);
+  }
+  if (p.D == 256 && p.Dv == 256)
+    return tf::launch<64, 256, 256, 32, 1, 32, 256>(p, B, kv, vt, stream);
+  return tf::launch<64, 256, 256, 32, 1>(p, B, kv, vt, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1072,7 +1379,10 @@ const char* cuda_error_string(int err) {
 // dtype: 0 = float32 (flash_fwd_tf32), 1 = bfloat16 (flash_fwd_wgmma).
 // window <= 0: no window. lse: null, or (f32 only) a contiguous (B, H, S)
 // float32 output that takes each row's log-sum-exp in the log2 domain,
-// log2 sum_j 2^(s_ij * scale * log2(e)), for the backward.
+// log2 sum_j 2^(s_ij * scale * log2(e)), for the backward. kv, vt (f32
+// only, else ignored): 16-byte aligned float32 scratch that the f32 call's
+// pre-pass fills, (B, Hk, 2, S, D8) and (B, Hk, 2, Dv, ld) with D8 = D
+// rounded up to 8 and ld = S rounded up to 8.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int H, int Hk, int S, int D, int Dv,
                         long long q_sb, long long q_sh, long long q_ss,
@@ -1080,7 +1390,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long v_sb, long long v_sh, long long v_ss,
                         long long o_sb, long long o_sh, long long o_ss,
                         float scale, int causal, int window, void* lse,
-                        void* stream) {
+                        void* kv, void* vt, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if (Hk <= 0 || H % Hk || D <= 0 || D > kMaxD || Dv <= 0 || Dv > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1091,7 +1401,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (lse != nullptr && dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_tf32(p, B, st);
+  if (dtype == 0)
+    return launch_tf32(p, B, static_cast<float*>(kv), static_cast<float*>(vt),
+                       st);
   if (dtype == 1) return launch_wgmma(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

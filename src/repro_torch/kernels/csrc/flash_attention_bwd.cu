@@ -200,39 +200,12 @@ __device__ __forceinline__ const float* at(const Params& p, const float* t,
   return t + b * p.st[which][0] + h * p.st[which][1];
 }
 
-// byte offset of (row, col) in an f32 tile of R rows as TMA lands it:
-// 32-column atoms of R rows x 128 bytes, 128-byte swizzle
-template <int R>
-__device__ __forceinline__ uint32_t tile_at(int row, int col) {
-  return static_cast<uint32_t>((col / 32) * (R * 128)) +
-         swizzle128(row, (col % 32) * 4);
-}
-
 __device__ __forceinline__ float lds(const unsigned char* sm, uint32_t off) {
   return *reinterpret_cast<const float*>(sm + off);
-}
-__device__ __forceinline__ float2 lds2(const unsigned char* sm,
-                                       uint32_t off) {
-  return *reinterpret_cast<const float2*>(sm + off);
 }
 __device__ __forceinline__ void sts(unsigned char* sm, uint32_t off,
                                     uint32_t x) {
   *reinterpret_cast<uint32_t*>(sm + off) = x;
-}
-
-// an A fragment's four values split: big[i] and small[i]
-__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&big)[4],
-                                       uint32_t (&small)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) tf32_split_a(x[i], big[i], small[i]);
-}
-
-// Within each k-step of 8, k index i of an A fragment (lane t holds t and
-// t + 4) stands for column 2i (i < 4) or 2i - 7: a lane's two k values are
-// then one 8-byte load. A B operand is written permuted to match: column j
-// of a K-major tile goes to position kpos(j) of its group of 8.
-__device__ __forceinline__ int kpos(int j) {
-  return (j & ~7) + ((j & 1) ? 4 + (j & 7) / 2 : (j & 7) / 2);
 }
 
 // delta = rowsum(dO o O), one warp a row, lanes over the columns in a
@@ -255,47 +228,23 @@ __global__ void __launch_bounds__(256) flash_bwd_delta(Params p) {
 }
 
 // K and V of keys [k0, k0 + 32) of one (b, kv head) split into big and
-// small halves (blockIdx.z 0: K, 1: V), their columns padded with zeros to
-// a multiple of 8 and permuted within each 8 (kpos); K's halves also
-// transposed, its keys permuted within each 8 and zero from S to ld.
-// 256 threads.
+// small halves (blockIdx.z 0: K, 1: V; hopper.cuh's split_keys), their
+// columns padded with zeros to a multiple of 8 and permuted within each 8
+// (kpos); K's halves also transposed, its keys permuted within each 8 and
+// zero from S to ld. 256 threads.
 __global__ void __launch_bounds__(256) flash_bwd_prep_kv(Params p) {
   __shared__ float tile[32][33];
   const int Hk = p.H / p.group;
   const int k0 = blockIdx.x * 32, bhk = blockIdx.y;
   const int b = bhk / Hk, hk = bhk - b * Hk;
-  const bool is_k = blockIdx.z == 0;
-  const int n = is_k ? p.D : p.Dv, np = (n + 7) & ~7;
-  const float* src = at(p, is_k ? p.k : p.v, is_k ? kK : kV, b, hk);
-  const long long ss = p.st[is_k ? kK : kV][2];
-  const long long half = static_cast<long long>(p.S) * np;
-  float* big = (is_k ? p.kv : p.vv) + 2 * bhk * half;
-  const long long t_half = static_cast<long long>(p.D) * p.ld;
-  float* t_big = p.kt + 2 * bhk * t_half;
-  for (int c0 = 0; c0 < np; c0 += 32) {
-    for (int e = threadIdx.x; e < 32 * 32; e += 256) {
-      const int r = e / 32, c = e % 32, key = k0 + r, col = c0 + c;
-      const float x = key < p.S && col < n ? src[key * ss + col] : 0.f;
-      if (key < p.S && col < np) {
-        big[key * np + kpos(col)] = __uint_as_float(tf32_big(x));
-        big[half + key * np + kpos(col)] = __uint_as_float(tf32_small(x));
-      }
-      tile[r][c] = x;
-    }
-    if (!is_k) continue;
-    __syncthreads();
-    for (int e = threadIdx.x; e < 32 * 32; e += 256) {
-      const int r = e / 32, c = e % 32, col = c0 + r;
-      const int at_key = k0 + kpos(c);
-      if (col < n && at_key < p.ld) {
-        const float x = tile[c][r];
-        t_big[col * p.ld + at_key] = __uint_as_float(tf32_big(x));
-        t_big[t_half + col * p.ld + at_key] =
-            __uint_as_float(tf32_small(x));
-      }
-    }
-    __syncthreads();
-  }
+  if (blockIdx.z == 0)
+    split_keys(at(p, p.k, kK, b, hk), p.st[kK][2], p.S, p.D, k0,
+               p.kv + 2ll * bhk * p.S * ((p.D + 7) & ~7),
+               p.kt + 2ll * bhk * p.D * p.ld, p.ld, tile);
+  else
+    split_keys(at(p, p.v, kV, b, hk), p.st[kV][2], p.S, p.Dv, k0,
+               p.vv + 2ll * bhk * p.S * ((p.Dv + 7) & ~7), nullptr, p.ld,
+               tile);
 }
 
 // dK and dV of kv head hk, key j: the sum of its group's G partials in

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention forward and
-// the f32 backward: TMA tensor maps and copies, mbarriers, wgmma
-// descriptors and products (bf16, and tf32 for 3xTF32), and register
-// hand-over between warpgroups (setmaxnreg).
+// Hopper (sm_90a) building blocks of the flash-attention kernels (the bf16
+// and f32 forwards, the f32 backward): TMA tensor maps and copies,
+// mbarriers, wgmma descriptors and products (bf16, and tf32 for 3xTF32),
+// the split of f32 operands into TF32 halves, and register hand-over
+// between warpgroups (setmaxnreg).
 //
 // Shared-memory tiles are laid out as TMA writes them with 128-byte
 // swizzle: a tile of R rows and HD columns of bf16 is HD / 64 atoms, each R
@@ -16,7 +17,7 @@
 // f32 tiles take the same layout with 32 columns an atom (128 bytes a row),
 // and a tf32 k-step of 8 columns is the same 32 bytes into the row. tf32
 // wgmma reads A and B K-major only (the transpose bits are for 16-bit
-// types), so the backward takes every A operand from registers.
+// types), so the f32 kernels take every A operand from registers.
 #pragma once
 
 #include <cstdint>
@@ -504,6 +505,74 @@ __device__ __forceinline__ void tf32_split_a(float x, uint32_t& big,
                                              uint32_t& small) {
   big = tf32_big(x);
   small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// an A fragment's four values split: big[i] and small[i]
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) tf32_split_a(x[i], big[i], small[i]);
+}
+
+// Within each k-step of 8, k index i of an A fragment (lane t holds t and
+// t + 4) stands for column 2i (i < 4) or 2i - 7: a lane's two k values are
+// then one 8-byte load. A B operand is written permuted to match: column j
+// of a K-major tile goes to position kpos(j) of its group of 8.
+__device__ __forceinline__ int kpos(int j) {
+  return (j & ~7) + ((j & 1) ? 4 + (j & 7) / 2 : (j & 7) / 2);
+}
+
+// byte offset of (row, col) in an f32 tile of R rows as TMA lands it:
+// 32-column atoms of R rows x 128 bytes, 128-byte swizzle
+template <int R>
+__device__ __forceinline__ uint32_t tile_at(int row, int col) {
+  return static_cast<uint32_t>((col / 32) * (R * 128)) +
+         swizzle128(row, (col % 32) * 4);
+}
+
+__device__ __forceinline__ float2 lds2(const unsigned char* sm,
+                                       uint32_t off) {
+  return *reinterpret_cast<const float2*>(sm + off);
+}
+
+// The B operands of the f32 attention kernels, split once in device
+// memory: keys [k0, k0 + 32) of one head of an (S, n) f32 matrix at src
+// (row stride ss) into TF32 halves (tf32_big, then tf32_small of the same
+// element `half` floats further). Where `rows` is not null, as (2, S, np)
+// with np = n rounded up to 8, columns zero-padded to np and permuted
+// within each 8 (kpos); where `cols` is not null, transposed, as (2, n,
+// ld), keys permuted within each 8 and zero from S to ld. One block of
+// any multiple of 32 threads; tile is its shared 32 x 33 staging tile.
+__device__ __forceinline__ void split_keys(const float* src, long long ss,
+                                           int S, int n, int k0, float* rows,
+                                           float* cols, int ld,
+                                           float (&tile)[32][33]) {
+  const int np = (n + 7) & ~7;
+  const long long half = static_cast<long long>(S) * np;
+  const long long t_half = static_cast<long long>(n) * ld;
+  for (int c0 = 0; c0 < np; c0 += 32) {
+    for (int e = threadIdx.x; e < 32 * 32; e += blockDim.x) {
+      const int r = e / 32, c = e % 32, key = k0 + r, col = c0 + c;
+      const float x = key < S && col < n ? src[key * ss + col] : 0.f;
+      if (rows != nullptr && key < S && col < np) {
+        rows[key * np + kpos(col)] = __uint_as_float(tf32_big(x));
+        rows[half + key * np + kpos(col)] = __uint_as_float(tf32_small(x));
+      }
+      tile[r][c] = x;
+    }
+    if (cols == nullptr) continue;
+    __syncthreads();
+    for (int e = threadIdx.x; e < 32 * 32; e += blockDim.x) {
+      const int r = e / 32, c = e % 32, col = c0 + r;
+      const int at_key = k0 + kpos(c);
+      if (col < n && at_key < ld) {
+        const float x = tile[c][r];
+        cols[col * ld + at_key] = __uint_as_float(tf32_big(x));
+        cols[t_half + col * ld + at_key] = __uint_as_float(tf32_small(x));
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // wgmma_tf32 is D (64 x N f32) += A (64 x 8 tf32 in registers) * B (8 x N

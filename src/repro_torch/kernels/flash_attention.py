@@ -7,13 +7,14 @@ window, in (B, H, S, D) layout, ``Dv != D`` allowed. Unlike the Pallas
 wrapper it takes any S (the kernel masks the ragged last tile) and GQA
 inputs (k, v with Hk heads, H % Hk == 0) without expanding them.
 ``ops.flash_attention`` dispatches here for CUDA tensors. Both dtypes run
-on tensor cores: bfloat16 in ``flash_fwd_wgmma`` (warpgroup products fed
-by TMA through an mbarrier ring, shared helpers in ``csrc/hopper.cuh``),
-float32 in ``flash_fwd_tf32`` (each product as three TF32 products, for
-f32 accuracy). The backward (``flash_attention_bwd_cuda``) is the gradient
-that the JAX package leaves to autodiff; it runs in float32, as 3xTF32
-warpgroup products (``wgmma`` tf32) on tiles that TMA brings, from the
-log-sum-exp that the f32 forward keeps when asked (``with_lse=True``).
+on warpgroup products (``wgmma``) fed by TMA through an mbarrier ring
+(shared helpers in ``csrc/hopper.cuh``): bfloat16 in ``flash_fwd_wgmma``,
+float32 in ``flash_fwd_tf32``, each product as three TF32 products for f32
+accuracy, on K and V^T split into TF32 halves once a call by a pre-pass.
+The backward (``flash_attention_bwd_cuda``) is the gradient that the JAX
+package leaves to autodiff; it runs in float32, as 3xTF32 warpgroup
+products on tiles that TMA brings, from the log-sum-exp that the f32
+forward keeps when asked (``with_lse=True``).
 """
 from __future__ import annotations
 
@@ -79,7 +80,8 @@ def bwd_work(b, h, hk, s, d, dv, window, itemsize=4, causal=True) -> tuple:
 def head_tile(d: int, dv: int) -> int:
     """The head width of the kernels' shared-memory tiles (for bf16, 64-
     column atoms): max(D, Dv) rounded up to 64, 128 or 256, the zero-filled
-    columns included. The float32 forward computes at that width."""
+    columns included; each forward kernel has, for each tile, an
+    instantiation that reads D and Dv at run time."""
     return next(t for t in (64, 128, 256) if max(d, dv) <= t)
 
 
@@ -99,12 +101,13 @@ def bwd_product_widths(d: int, dv: int) -> tuple:
 def product_widths(d: int, dv: int, dtype=torch.float32) -> tuple:
     """(depth of Q K^T, width of P V) that the forward kernel computes for
     ``dtype``: the bf16 kernel's wgmma runs D rounded up to its k-step of
-    16 and Dv rounded up to its n-step of 8; the float32 kernel runs both
-    at ``head_tile``."""
+    16 and Dv rounded up to its n-step of 8; the float32 kernel runs D
+    rounded up to its tf32 k-step of 8, and Dv in chunks of 64 columns, the
+    last one 16, 32 or 64 wide (so 64, 128 and 256 exactly)."""
     if dtype == torch.bfloat16:
-        return -(-d // 16) * 16, -(-dv // 8) * 8
-    tile = head_tile(d, dv)
-    return tile, tile
+        return _up(d, 16), _up(dv, 8)
+    last = dv - 64 * ((dv - 1) // 64)
+    return _up(d, 8), dv - last + next(w for w in (16, 32, 64) if last <= w)
 
 
 def padded_flops(flops: float, d: int, dv: int, backward: bool = False,
@@ -136,13 +139,12 @@ def layout_error(name: str, t: torch.Tensor):
 
 
 def check_mma_layout(tensors: dict) -> None:
-    """The kernels copy 16-byte rows (the f32 forward with ``cp.async``,
-    the bf16 forward and the backward through TMA tensor maps, which take
-    the same alignment): each (B, H, S, D) tensor needs a 16-byte aligned
-    data pointer, batch, head and sequence strides that are multiples of 16
-    bytes, and a last dim that is a multiple of 16 bytes (8 bfloat16 or 4
-    float32 elements). Raises ValueError naming what fails; there is no
-    other path for such an input."""
+    """The kernels move 16-byte rows, most of them through TMA tensor
+    maps: each (B, H, S, D) tensor needs a 16-byte aligned data pointer,
+    batch, head and sequence strides that are multiples of 16 bytes, and a
+    last dim that is a multiple of 16 bytes (8 bfloat16 or 4 float32
+    elements). Raises ValueError naming what fails; there is no other path
+    for such an input."""
     for name, t in tensors.items():
         err = layout_error(name, t)
         if err is not None:
@@ -179,19 +181,31 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = _build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-           ctypes.c_void_p])
-    lib.flash_attention_fwd.restype = ctypes.c_int
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:  # the library's first call
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, h, hk, s, d, dv, *strides, float(scale),
-        int(causal), int(window or 0),
-        None if lse is None else lse.data_ptr(), stream)
+    kv = vt = None
+    if q.dtype == torch.float32:
+        # the pre-pass's f32 scratch, in one buffer: K's TF32 halves (B, Hk,
+        # 2, S, D rounded up to 8), then V^T's (B, Hk, 2, Dv, ld), ld = S
+        # rounded up to 8, on a 256-byte line
+        n_kv = _up(b * hk * 2 * s * _up(d, 8), 64)
+        scratch = torch.empty(n_kv + b * hk * 2 * dv * _up(s, 8),
+                              dtype=torch.float32, device=q.device)
+        kv = scratch.data_ptr()
+        vt = kv + 4 * n_kv
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             _DTYPES[q.dtype], b, h, hk, s, d, dv, *strides, float(scale),
+             int(causal), int(window or 0),
+             None if lse is None else lse.data_ptr(), kv, vt, stream)
     _build.check(lib, err, "flash_attention launch")
     _build.LAUNCHES["flash_attention"] += 1
     return (out, lse) if with_lse else out

@@ -156,20 +156,20 @@ def _body(src, head):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
-    """Each dtype goes to one tensor-core kernel: bf16 to flash_fwd_wgmma,
-    whose products are wgmma.mma_async bf16 (Q K^T from shared memory, P V
-    with P from registers), fed by TMA tensor copies through mbarriers from
-    a producer warpgroup that hands its registers over with setmaxnreg,
-    helpers that hopper.cuh holds; f32 to flash_fwd_tf32, whose products
-    are three mma.sync m16n8k8 tf32 on operands split with the rounding of
-    cvt.rna.tf32.f32, helpers that tf32_mma.cuh holds. No SIMT kernel, no scalar product and no warp-level bf16
-    kernel is left."""
+    """Each dtype goes to one tensor-core kernel, fed by TMA tensor copies
+    through mbarriers from a producer warpgroup that hands its registers
+    over with setmaxnreg, helpers that hopper.cuh holds: bf16 to
+    flash_fwd_wgmma, whose products are wgmma.mma_async bf16 (Q K^T from
+    shared memory, P V with P from registers); f32 to flash_fwd_tf32, whose
+    products are 3xTF32 wgmma.mma_async .tf32 (wgmma_3xtf32) with A split
+    in registers (split4) and B the TF32 halves that its pre-pass writes.
+    No SIMT kernel, no scalar product, no warp-level mma.sync and no
+    cp.async copy is left."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    hdr = (_build.CSRC / "tf32_mma.cuh").read_text()
+    hop = (_build.CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src
     if dtype == "bfloat16":
-        hop = (_build.CSRC / "hopper.cuh").read_text()
         assert "if (dtype == 1) return launch_wgmma(p, B, st);" in src
-        assert '#include "hopper.cuh"' in src
         # every branch of the entry launches the one kernel, at some tile,
         # but the one that refuses head dims that are not multiples of 8
         entry = _body(src, "int launch_wgmma(")
@@ -208,22 +208,47 @@ def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
             assert gone not in src, gone
         assert "mma.sync" not in kernel and "cp.async.cg" not in kernel
     else:
-        assert "if (dtype == 0) return launch_tf32(p, B, st);" in src
-        assert set(re.findall(r"mma::(launch_\w+)<",
-                              _body(src, "int launch_tf32("))) \
-            == {"launch_f32"}
-        assert re.findall(r"launch\((flash_fwd_\w+)<",
-                          _body(src, "int launch_f32(")) == ["flash_fwd_tf32"]
-        assert "mma_3xtf32(" in _body(src, "flash_fwd_tf32(Params p) {")
-        assert '#include "tf32_mma.cuh"' in src
-        assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" \
-            in _body(hdr, "void mma1688(")
-        assert _body(hdr, "void mma_3xtf32(").count("mma1688(") == 3
-        # both parts rounded as _tf32 below (and cvt.rna.tf32.f32) round
+        # the entry sends f32 to launch_tf32, whose every branch launches
+        # tf::launch at some tile but the one that refuses head dims that
+        # are not multiples of 4 (or a call without the pre-pass's scratch)
+        assert re.search(r"if \(dtype == 0\)\s*return launch_tf32\(", src)
+        entry = _body(src, "int launch_tf32(")
+        assert entry.count("return static_cast<int>(cudaErrorInvalidValue);") \
+            == 1
+        assert entry.count("return tf::launch<") == entry.count("return ") - 1
+        # a call is the pre-pass, then the one kernel
+        launch = _body(src, "int launch(const Params& p, int B, float* kv,")
+        assert re.findall(r"(flash_fwd_\w+)(?:<<<|<BQ, QW, DV, BK, ST, KS, "
+                          r"VN>;)", launch) \
+            == ["flash_fwd_prep_kv", "flash_fwd_tf32"]
+        assert launch.count("<<<") == 2
+        assert "split_keys(" in _body(src, "flash_fwd_prep_kv(Params p")
+        kernel = _body(src, "flash_fwd_tf32(const __grid_constant__")
+        for call in ("tma_load(", "mbar_wait(", "mbar_arrive(",
+                     "mbar_expect_tx(", "setmaxnreg_dec<", "setmaxnreg_inc<",
+                     "issue_qk<", "issue_pv<", "wgmma_fence(",
+                     "wgmma_commit(", "wgmma_wait<", "split4("):
+            assert call in kernel, call
+        # every product is a 3xTF32 wgmma: Q K^T on Q split in registers,
+        # P V on P split in registers, both with B from shared memory
+        tf = src[src.index("namespace tf {"):]  # the f32 kernel's helpers
+        qk, pv = _body(tf, "void issue_qk("), _body(tf, "void issue_pv(")
+        assert qk.count("wgmma_3xtf32(") == 1 and "split4(" in qk
+        assert pv.count("wgmma_3xtf32(") == 4  # 64 wide; or 16, 32, 64
+        assert "wgmma_" not in kernel.replace("wgmma_fence(", "").replace(
+            "wgmma_commit(", "").replace("wgmma_wait<", "")
+        for n in (16, 32, 64):
+            assert f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32" \
+                in hop
+        assert _body(hop, "void wgmma_3xtf32(").count("wgmma_tf32(") == 3
+        # both halves of a B operand rounded as _tf32 below rounds
         assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" \
-            in _body(hdr, "uint32_t rna_tf32(")
-        assert _body(hdr, "void split_tf32(").count("rna_tf32(") == 2
-        assert "split_tf32(" in _body(src, "flash_fwd_tf32(Params p) {")
+            in _body(hop, "uint32_t tf32_big(")
+        for gone in ("mma.sync", "mma1688", "cp.async.cg", "cp.async.ca",
+                     "split_tf32", "flash_fwd_tf32(Params p", "atomicAdd"):
+            assert gone not in src, gone
+        assert not re.search(r"\bmma_3xtf32\(", src)
+        assert not (_build.CSRC / "tf32_mma.cuh").exists()
     assert "flash_fwd_simt" not in src and "fmaf(" not in src
 
 
@@ -233,13 +258,15 @@ def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
     (40, 24, torch.bfloat16, (48, 24)),  # D to the k-step of 16
     (16, 8, torch.bfloat16, (16, 8)),
     (256, 200, torch.bfloat16, (256, 200)),
-    (96, 64, torch.float32, (128, 128)),  # the f32 kernel's 128-wide tile
-    (40, 24, torch.float32, (64, 64)),
+    (96, 64, torch.float32, (96, 64)),  # MLA: no column past D or Dv
+    (40, 24, torch.float32, (40, 32)),  # D to the k-step of 8, Dv to 32
+    (256, 200, torch.float32, (256, 208)),  # Dv: chunks of 64, then 16
 ])
 def test_flash_product_widths_per_dtype(d, dv, dtype, widths):
     """The widths each forward kernel computes at, and the padded work the
     chip_smoke bounds take from them: the bf16 kernel's wgmma runs D up to
-    16 and Dv up to 8, the f32 kernel both at the 64/128/256 tile."""
+    16 and Dv up to 8, the f32 kernel's D up to 8 and Dv in chunks of 64
+    columns, the last one 16, 32 or 64 wide."""
     assert flash.product_widths(d, dv, dtype) == widths
     flops, _ = flash.work(4, 40, 40, 1024, d, dv, None, 2)
     assert flash.padded_flops(flops, d, dv, dtype=dtype) == pytest.approx(
@@ -300,10 +327,12 @@ def _emulated_flash(q, k, v, window, qk, pv):
 def test_flash_attention_3xtf32_split_keeps_f32_parity(window):
     """Why the f32 kernel splits both products into three TF32 products.
     At gemma3-1b's heads (H=4, Hk=1, D=256), B=2, S=256, the emulated split
-    is 1.91e-06 from the f32 plain version (window None or 64); one TF32
-    product on Q K^T alone is 8.17e-04 from it, on P V alone 9.35e-04:
-    outside the 1e-4 that the card's f32 tests and chip_smoke.py hold the
-    kernel to."""
+    is 1.91e-06 from the f32 plain version (window None or 64), and so is
+    within 1e-5 the split that the kernel runs ("3xtf32k": Q and P split in
+    registers with small = x - big unrounded, K's and V^T's halves both
+    rounded); one TF32 product on Q K^T alone is 8.17e-04 from it, on P V
+    alone 9.35e-04: outside the 1e-4 that the card's f32 tests and
+    chip_smoke.py hold the kernel to."""
     q, k, v = _port(_qkv((2, 4, 256, 256), torch.float32, seed=256, hk=1),
                     torch.float32)
     exp = ref.flash_attention_ref(q, k, v, window=window)
@@ -312,6 +341,7 @@ def test_flash_attention_3xtf32_split_keeps_f32_parity(window):
         out = _emulated_flash(q, k, v, window, qk, pv)
         return (out - exp).abs().max().item()
     assert err("3xtf32", "3xtf32") < 1e-4
+    assert err("3xtf32k", "3xtf32k") < 1e-5
     assert err("tf32", "f32") > 1e-4
     assert err("f32", "tf32") > 1e-4
 
@@ -538,7 +568,7 @@ def test_library_path_hashes_headers(tmp_path, monkeypatch):
     before = {name: _build.library_path(name) for name in _build.SOURCES}
     (tmp_path / "notes.txt").write_text("not a header")
     assert {n: _build.library_path(n) for n in _build.SOURCES} == before
-    with open(tmp_path / "tf32_mma.cuh", "a") as f:
+    with open(tmp_path / "hopper.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.SOURCES}
     assert all(after[n] != before[n] for n in _build.SOURCES)
@@ -766,6 +796,28 @@ def test_flash_attention_tf32_kernel_lse(cuda, b, h, hk, s, d, dv, causal,
     assert lse.shape == (b, h, s) and lse.dtype == torch.float32
     assert torch.equal(out, alone)  # keeping lse leaves the output as it is
     torch.testing.assert_close(lse * math.log(2), exp, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@_MMA_CASES
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_flash_attention_tf32_kernel_bit_equal(cuda, b, h, hk, s, d, dv,
+                                               causal, window, with_lse):
+    """Two launches of the f32 kernel on the same inputs give the same bits,
+    output and lse: each row's sums run in one fixed order (at HD = 256 the
+    two consumer warpgroups' partial scores are added alike by both), with
+    no atomics; the bit-exact train resumes rest on it."""
+    q, k, v = (t.to(cuda) for t in _port(
+        _qkv((b, h, s, d), torch.float32, seed=s + d, dv=dv, hk=hk),
+        torch.float32))
+    kw = dict(causal=causal, window=window, scale=None, with_lse=with_lse)
+    first = flash.flash_attention_cuda(q, k, v, **kw)
+    second = flash.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not with_lse:
+        first, second = (first,), (second,)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

@@ -219,13 +219,15 @@ def test_scan_and_delta_work_give_the_chip_bounds():
 
 
 def test_padded_head_work():
-    """MLA's D = 96, Dv = 64: the f32 forward runs both products in the
-    128-wide tile, so 62.5 % of its work is real; the backward runs S 96
-    deep, dP 64 deep, dV^T 64 rows, dQ 96 wide and dK^T 128 rows, so 416 of
-    448 (92.9 %)."""
+    """MLA's D = 96, Dv = 64: the f32 forward runs Q K^T 96 deep and P V 64
+    wide, so all of its work is real (D = 40, Dv = 24: 40 and 32, 64 of 72);
+    the backward runs S 96 deep, dP 64 deep, dV^T 64 rows, dQ 96 wide and
+    dK^T 128 rows, so 416 of 448 (92.9 %)."""
     flops, _ = pflash.work(4, 40, 40, 1024, 96, 64, None, 4)
     assert pflash.head_tile(96, 64) == 128 and pflash.head_tile(64, 64) == 64
-    assert pflash.padded_flops(flops, 96, 64) == flops / 0.625
+    assert pflash.padded_flops(flops, 96, 64) == flops
+    assert pflash.padded_flops(flops, 40, 24) == pytest.approx(
+        flops * 72 / 64, rel=1e-12)
     bflops, _ = pflash.bwd_work(4, 40, 40, 1024, 96, 64, None)
     assert pflash.bwd_product_widths(96, 64) == (96, 64, 64, 96, 128)
     assert pflash.padded_flops(bflops, 96, 64, backward=True) \

@@ -14,9 +14,12 @@ also runs the ``flash_bwd`` phase (gemma3-1b's train shapes: f32, B=4,
 H=4, Hk=1, S=1024, D=256, window 512 and none, and S=1000 with window
 512) and times each kernel of one backward call by name with
 ``torch.profiler`` (device time summed over 10 calls, divided by 10).
-Kernel, plain and SDPA ms are CUDA-event medians. Prints one JSON line a
+Kernel, plain and SDPA ms are CUDA-event medians; each forward case also
+carries its kernels' device ms (``torch.profiler``). Prints one JSON line a
 run: the cases, the backward's per-kernel ms at S=1024 for each window,
-and the ``ptxas`` registers and spills of the backward's kernels. The
+the host microseconds a forward call takes to return at gemma3-1b's
+window-512 shape in f32 and bf16, and the ``ptxas`` registers and spills
+of the backward's kernels. The
 phases take their bounds from the checkout's ``repro_torch.roofline`` rates
 and its kernel module's ``work`` functions, so a checkout must have both.
 """
@@ -27,6 +30,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,6 +67,27 @@ def kernel_ms(torch, flash, window, calls=10) -> dict:
     return times
 
 
+def forward_host_us(torch, ops, calls=50) -> dict:
+    """Host microseconds a call of ops.flash_attention takes to return at
+    gemma3-1b's prefill shape, window 512 (the card runs behind it)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((4, 4, 1024, 256), (4, 1, 1024, 256),
+                                 (4, 1, 1024, 256)))
+        ops.flash_attention(q, k, v, window=512)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            ops.flash_attention(q, k, v, window=512)
+        out[str(dtype).split(".")[-1]] = round(
+            (time.perf_counter() - t0) / calls * 1e6, 1)
+        torch.cuda.synchronize()
+    return out
+
+
 def run_one(checkout: Path) -> dict:
     sys.path.insert(0, str(checkout / "src"))
     sys.path.insert(0, str(ROOT))
@@ -77,7 +102,8 @@ def run_one(checkout: Path) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     _build.build(["flash_attention", "flash_attention_bwd"])
     out = {"forward": chip_smoke.phase_flash(torch, ops, ref, rl,
-                                             flash)["cases"]}
+                                             flash)["cases"],
+           "forward_host_us": forward_host_us(torch, ops)}
     if "lse" not in inspect.signature(
             flash.flash_attention_bwd_cuda).parameters:
         return out
