@@ -14,9 +14,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
              bf16; ragged S=1000), at Jamba's (bf16, B=4, H=64, Hk=8,
              S=1024, D=128, global), at minicpm3-4b's MLA heads (f32
              and bf16, B=4, H=Hk=40, S=1024, D=96, Dv=64), at
-             musicgen-large's (f32, B=4, H=Hk=32, S=64+1024, D=64) and at
-             qwen2-vl-2b's (f32, B=4, H=12, Hk=2, S=256+1024, D=128)
-             against its plain version; two launches bit-equal (f32 and
+             musicgen-large's (f32, B=4, H=Hk=32, S=64+1024, D=64), at
+             qwen2-vl-2b's (f32, B=4, H=12, Hk=2, S=256+1024, D=128) and at
+             deepseek-moe-16b's (bf16 and f32, B=4, H=Hk=16, S=1024,
+             D=128, global) against its plain version; two launches bit-equal (f32 and
              bf16); kernel, plain, bound and library
              (scaled_dot_product_attention) ms, and the kernels' device ms
              alone (torch.profiler; f32: the pre-pass included), apart from
@@ -39,9 +40,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
   flash_bwd  the flash-attention backward kernel at gemma3-1b's train
              shapes (f32, B=4, H=4, Hk=1, S=1024, D=256; window 512 and
              none; ragged S=1000), minicpm3-4b's (f32, B=4, H=Hk=40,
-             S=1024, D=96, Dv=64), musicgen-large's (H=Hk=32, S=1088, D=64)
-             and qwen2-vl-2b's (H=12, Hk=2, S=1280, D=128; a GQA group of
-             6 in its group sum), fed the forward kernel's output and
+             S=1024, D=96, Dv=64), musicgen-large's (H=Hk=32, S=1088, D=64),
+             qwen2-vl-2b's (H=12, Hk=2, S=1280, D=128; a GQA group of 6 in
+             its group sum) and deepseek-moe-16b's (H=Hk=16, S=1024,
+             D=128), fed the forward kernel's output and
              log-sum-exp, against its plain version; two launches
              bit-equal; kernel, plain, bound and library (the backward of
              scaled_dot_product_attention) ms; each line names the path,
@@ -49,11 +51,15 @@ Phases, one printed line each; any failure raises and exits non-zero:
              brings), and where the products run wider than D or Dv, the
              bound of the padded work
   reference  gemma3-1b-reduced, jamba-1.5-large-398b-reduced,
-             rwkv6-1.6b-reduced, minicpm3-4b-reduced, qwen2-vl-2b-reduced
-             and musicgen-large-reduced prefill + decode on the card
-             against the same weights on the CPU, f32 (the last two with 4
+             rwkv6-1.6b-reduced, minicpm3-4b-reduced, qwen2-vl-2b-reduced,
+             musicgen-large-reduced and deepseek-moe-16b-reduced (its MoE
+             stage stacked twice) prefill + decode on the card against the
+             same weights on the CPU, f32 (qwen2-vl and musicgen with 4
              random front-end embeddings before the prompt, decoding after
-             them); each arch's train loss and gradients likewise
+             them); each arch's train loss and gradients likewise;
+             deepseek-moe-16b-reduced once more with the RunConfig knobs
+             set: capacity_factor=0.1 and moe_groups=1 serving, remat=False
+             training
   roofline   beside the build and the kernel phases, a process on no card
              counts one step of every serve and train phase below on the
              meta device (repro_torch.roofline: counted FLOPs and bytes,
@@ -97,11 +103,22 @@ Phases, one printed line each; any failure raises and exits non-zero:
              each 1024-token prompt, decode from position 1280, a 301 MB
              KV cache; delta_mask and flash_attention launched
   musicgen   the same serve of full-width musicgen-large cut to its first
-             12 of 48 layers (f32, MHA 32 heads of 64, sinusoidal
+             4 of 48 layers (f32, MHA 32 heads of 64, sinusoidal
              positions, 64 conditioning embeddings before each prompt, a
-             0.88 GB KV cache); then the whole 48 layers once without
+             0.29 GB KV cache); then the whole 48 layers once without
              snapshots (a 3.52 GB cache): prefill and 32 decode steps,
              tokens in range and logits finite
+  deepseek   the same serve of the whole deepseek-moe-16b in bf16 (28
+             layers, MHA 16 heads of 128, 64 routed experts top 6 and 2
+             shared in layers 1-27: 16.4e9 parameters, a 0.97 GB KV cache):
+             delta_mask and flash_attention launched on that path
+  moe_knobs  the whole deepseek-moe-16b in bf16, one set of weights,
+             through prefill and decode_step: prefill 4 x 1024 and 8 greedy
+             steps with the defaults; with capacity_factor=0.1 twice
+             (every step's logits bit-equal, the prefill's unequal to the
+             defaults'); with capacity_factor=64/6 (nothing drops) under
+             the policy's four groups and under moe_groups=1 (prefill
+             logits within 2^-3); prefill and decode ms of each
   examples   the three example twins (examples/*_torch.py) on the card:
              quickstart's finite loss and its read after failover; the
              serve twin (rwkv6-1.6b-reduced, a kill at token 24) equal to
@@ -130,7 +147,14 @@ Phases, one printed line each; any failure raises and exits non-zero:
              (the pipeline's front-end embeddings for each step), and 2
              steps each of the whole qwen2-vl-2b and the whole
              musicgen-large, flash_attention and its backward launched at
-             S = 1024 + 256 and 1024 + 64. The examples and train phases
+             S = 1024 + 256 and 1024 + 64; then deepseek-moe-16b cut to
+             its dense layer 0 and 4 stacked MoE layers (f32, 2.85e9
+             parameters), 2 steps with recompute (remat) and 2 without:
+             losses and parameters' CRC bit-equal, step ms and peak GB of
+             each, and the counted FLOPs that recompute adds (checked
+             equal to the MoE layers' forward less each layer's shared
+             experts' down projection, which torch's checkpoint does not
+             recompute). The examples and train phases
              run in a child process with CUBLAS_WORKSPACE_CONFIG set, which
              the deterministic train step needs and which would slow the
              serve phases' decode
@@ -142,19 +166,21 @@ a line for each of its steps (prefill and decode; train):
 T is the larger of the counted FLOPs at the card's peak for the step's
 dtype and the counted bytes at its memory rate; X is the least prefill of
 the phase's three serve runs, the decode step without snapshots, or the
-mean train step of the run without checkpoints; R is repro_torch.roofline's
-(the model FLOPs, 6 or 2 x active parameters x rows, at the peak, over T);
+mean train step of the run without checkpoints (deepseek-moe-16b's with
+and without recompute); R is repro_torch.roofline's (the model FLOPs, 6 or
+2 x active parameters x rows, at the peak, over T);
 S is model over counted FLOPs. Then one JSON line {"roofline": [...]}, an
 entry for each of those steps; one JSON line {"dryrun": [...]}, the five
 cells' counted terms; one JSON line with every kernel's numbers
-(launches summed over the main-path runs: the six serve runs with a node
-kill and the whole musicgen-large serve, the quickstart and the two example
-runs with a kill, the six train runs with a node kill, and the Jamba L0,
-gemma3-1b 26-layer, rwkv6-1.6b, minicpm3 8-layer, qwen2-vl-2b and
-musicgen-large train runs, and the mesh phase's runs (serve and head_pad,
-and the mesh train step); flash_attention's entry is gemma3-1b's f32 case,
-flash_attention_bwd's its window-512 train case, each with every case
-under "cases"; each bound from the work function in the kernel's module),
+(launches summed over the main-path runs: the seven serve runs with a node
+kill and the whole musicgen-large serve, the moe_knobs runs, the
+quickstart and the two example runs with a kill, the six train runs with a
+node kill, and the Jamba L0, gemma3-1b 26-layer, rwkv6-1.6b, minicpm3
+8-layer, qwen2-vl-2b, musicgen-large and both deepseek-moe-16b train runs,
+and the mesh phase's runs (serve and head_pad, and the mesh train step);
+flash_attention's entry is gemma3-1b's f32 case, flash_attention_bwd's its
+window-512 train case, each with every case under "cases"; each bound from
+the work function in the kernel's module),
 and the last line {"ok": true, "device": {...}}. Kernel times are CUDA-event
 medians of 20 runs.
 """
@@ -196,8 +222,28 @@ QWEN_VL_ARGS = ["--arch", "qwen2-vl-2b"] + SERVE_ARGS[2:]
 MUSICGEN_ARGS = ["--arch", "musicgen-large"] + SERVE_ARGS[2:]
 # of 48 for the runs with snapshots: the whole model's 3.52 GB cache takes
 # minutes to snapshot four times through the cluster; the whole model
-# serves once without snapshots
-MUSICGEN_SERVE_LAYERS = 12
+# serves once without snapshots. 4 layers (a 0.29 GB cache) keep the whole
+# script inside its time limit beside the deepseek-moe-16b serve (~190 s)
+MUSICGEN_SERVE_LAYERS = 4
+DEEPSEEK = "deepseek-moe-16b"
+DEEPSEEK_ARGS = ["--arch", DEEPSEEK] + SERVE_ARGS[2:] + ["--dtype",
+                                                          "bfloat16"]
+# of 27 stacked MoE layers, after the dense layer 0: 2.85e9 parameters, a
+# 45.7 GB f32 train state
+DEEPSEEK_TRAIN_MOE_LAYERS = 4
+DEEPSEEK_TRAIN = f"train {DEEPSEEK} {1 + DEEPSEEK_TRAIN_MOE_LAYERS} layers f32"
+# RunConfig overrides of a train phase, by its label (count_rooflines and
+# the train phase read them)
+TRAIN_RC = {DEEPSEEK_TRAIN + " remat off": {"remat": False}}
+MOE_DECODE = 8  # greedy decode steps of the moe_knobs phase
+MOE_LOW_FACTOR = 0.1  # 10 slots an expert of a 1024-token group: 90 % drop
+# E / top_k: an expert's capacity covers every token of its group
+MOE_NO_DROP = 64 / 6
+# prefill logits of one group against the policy's four, nothing dropped:
+# the same function, its expert products batched otherwise, so other bf16
+# roundings through 28 layers; 2^-3 is 8 bf16 ulps at the largest logits'
+# scale (< 4)
+MOE_GROUPS_TOL = 2.0 ** -3
 MESH_DECODE = 8  # greedy decode steps of the mesh phase
 HEAD_PAD = 8  # gemma3-1b's 4 query heads padded to 8 on its 1 kv head
 # head_pad=8 prefill against the unpadded one: the same real heads, but
@@ -364,6 +410,7 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
     mla = (4, 40, 40, 96, 64)  # minicpm3-4b's MLA: 64 nope + 32 rope; v 64
     musicgen = (4, 32, 32, 64, 64)  # MHA, prefill of 64 + 1024 rows
     qwen_vl = (4, 12, 2, 128, 128)  # GQA group 6, prefill of 256 + 1024
+    deepseek = (4, 16, 16, 128, 128)  # deepseek-moe-16b's MHA
     cases = [(gemma, torch.float32, 1024, 512),
              (gemma, torch.float32, 1024, None),
              (gemma, torch.bfloat16, 1024, 512),
@@ -374,7 +421,9 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
              (mla, torch.float32, 1024, None),
              (mla, torch.bfloat16, 1024, None),
              (musicgen, torch.float32, 1088, None),
-             (qwen_vl, torch.float32, 1280, None)]
+             (qwen_vl, torch.float32, 1280, None),
+             (deepseek, torch.bfloat16, 1024, None),
+             (deepseek, torch.float32, 1024, None)]
     results = {}
     for (b, h, hk, d, dv), dtype, s, window in cases:
         gen = torch.Generator(device=dev).manual_seed(s + (window or 0) + h)
@@ -464,21 +513,23 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
     """The backward kernel at gemma3-1b's train shapes (f32): local layers
     (window 512), the global layer, and a ragged S; then at minicpm3-4b's
     MLA heads (D = 96, Dv = 64, H = Hk = 40), musicgen-large's (MHA, D = 64,
-    S = 64 + 1024) and qwen2-vl-2b's (a GQA group of 6, D = 128, S = 256 +
-    1024). Its bound counts the five
+    S = 64 + 1024), qwen2-vl-2b's (a GQA group of 6, D = 128, S = 256 +
+    1024) and deepseek-moe-16b's (MHA, D = 128). Its bound counts the five
     products (Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over the pairs the band
     holds."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gemma, mla = (4, 4, 1, 256, 256), (4, 40, 40, 96, 64)
     musicgen, qwen_vl = (4, 32, 32, 64, 64), (4, 12, 2, 128, 128)
+    deepseek = (4, 16, 16, 128, 128)
     results = {}
     for (b, h, hk, d, dv), s, window in ((gemma, 1024, 512),
                                          (gemma, 1024, None),
                                          (gemma, 1000, 512),
                                          (mla, 1024, None),
                                          (musicgen, 1088, None),
-                                         (qwen_vl, 1280, None)):
+                                         (qwen_vl, 1280, None),
+                                         (deepseek, 1024, None)):
         gen = torch.Generator(device=dev).manual_seed(7 * s + (window or 0)
                                                       + h)
         q, k, v = (torch.randn(shape, generator=gen, device=dev)
@@ -699,15 +750,16 @@ def phase_ssm_bwd(torch, ref, rl, ssm) -> dict:
     return result
 
 
-def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
-                    arch) -> None:
+def phase_reference(torch, Model, RunConfig, cfg, tree_to_torch,
+                    overrides) -> None:
     """The card's path (kernels) against the CPU's (plain versions) on the
-    same reduced weights: prefill 48 tokens, then 4 steps, f32. An arch
-    with a front end prefills its ``n_frontend`` random embeddings first
-    and decodes after them."""
-    cfg = get_config(arch)
-    rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
-                   rwkv_chunk=16)
+    same reduced weights: prefill 48 tokens, then 4 steps, f32, with the
+    ``RunConfig`` ``overrides``. An arch with a front end prefills its
+    ``n_frontend`` random embeddings first and decodes after them."""
+    rc = dataclasses.replace(RunConfig(param_dtype=torch.float32,
+                                       cache_dtype=torch.float32,
+                                       rwkv_chunk=16), **overrides)
+    arch = _ref_label(cfg, overrides)
     cpu, dev = Model(cfg, rc, "cpu"), Model(cfg, rc, "cuda")
     params_cpu = cpu.init(0)
     params_dev = tree_to_torch(params_cpu, "cuda")
@@ -734,16 +786,18 @@ def phase_reference(torch, Model, RunConfig, get_config, tree_to_torch,
           f"CPU max abs logit diff {worst:.3e} (tol 1e-4)", flush=True)
 
 
-def phase_train_reference(torch, Model, RunConfig, get_config,
-                          tree_to_torch, tree_leaves, arch) -> None:
-    """``arch``'s train loss and every gradient on the card (flash forward
+def phase_train_reference(torch, Model, RunConfig, cfg, tree_to_torch,
+                          tree_leaves, overrides) -> None:
+    """``cfg``'s train loss and every gradient on the card (flash forward
     and backward kernels; for Jamba also the scan's) against the same
-    weights and batch on the CPU (plain versions), f32: S = 100 in 64-token
-    loss chunks; with random front-end embeddings where the arch has
-    them."""
-    cfg = get_config(arch)
-    rc = RunConfig(param_dtype=torch.float32, cache_dtype=torch.float32,
-                   loss_chunk=64, rwkv_chunk=16)
+    weights and batch on the CPU (plain versions), f32, with the
+    ``RunConfig`` ``overrides``: S = 100 in 64-token loss chunks; with
+    random front-end embeddings where the arch has them."""
+    rc = dataclasses.replace(RunConfig(param_dtype=torch.float32,
+                                       cache_dtype=torch.float32,
+                                       loss_chunk=64, rwkv_chunk=16),
+                             **overrides)
+    arch = _ref_label(cfg, overrides)
     cpu, dev = Model(cfg, rc, "cpu"), Model(cfg, rc, "cuda")
     params = {"cpu": cpu.init(0)}
     params["cuda"] = tree_to_torch(params["cpu"], "cuda")
@@ -774,6 +828,33 @@ def phase_train_reference(torch, Model, RunConfig, get_config,
         raise AssertionError(f"reference train {arch}: card and CPU differ")
 
 
+def reference_runs(get_config) -> list:
+    """(config, serve overrides, train overrides) of each card-against-CPU
+    reference. deepseek-moe-16b-reduced's MoE stage is stacked twice, so
+    that training has a repeat to recompute, and runs twice: with the
+    defaults, then with the knobs set (a factor that drops, one group, no
+    recompute)."""
+    runs = [(get_config(arch), {}, {}) for arch in (
+        "gemma3-1b-reduced", "jamba-1.5-large-398b-reduced",
+        "rwkv6-1.6b-reduced", "minicpm3-4b-reduced", "qwen2-vl-2b-reduced",
+        "musicgen-large-reduced")]
+    ds = get_config(DEEPSEEK + "-reduced")
+    ds = dataclasses.replace(ds, stages=(
+        ds.stages[0], dataclasses.replace(ds.stages[1], repeat=2)))
+    return runs + [(ds, {}, {}),
+                   (ds, {"capacity_factor": MOE_LOW_FACTOR, "moe_groups": 1},
+                    {"remat": False})]
+
+
+def _ref_label(cfg, overrides) -> str:
+    """A reference line's name: the arch, its stacked stages and the
+    knobs set."""
+    reps = [st.repeat for st in cfg.stages]
+    label = cfg.name + (f" (stage repeats {reps})" if max(reps) > 1 else "")
+    knobs = ", ".join(f"{k}={v}" for k, v in overrides.items())
+    return label + (f" [{knobs}]" if knobs else "")
+
+
 def serve_runs(get_config, Stage) -> list:
     """(label, serve arguments, kernels that must launch, cfg, whether it
     runs once without snapshots) of every serve phase."""
@@ -796,7 +877,9 @@ def serve_runs(get_config, Stage) -> list:
          _cut(musicgen, Stage, musicgen.stages[0].block,
               MUSICGEN_SERVE_LAYERS), False),
         ("serve musicgen-large 48 layers f32", MUSICGEN_ARGS,
-         ("flash_attention",), musicgen, True)]
+         ("flash_attention",), musicgen, True),
+        (f"serve {DEEPSEEK} bf16", DEEPSEEK_ARGS,
+         ("delta_mask", "flash_attention"), get_config(DEEPSEEK), False)]
 
 
 def train_configs(get_config, Stage) -> dict:
@@ -804,6 +887,11 @@ def train_configs(get_config, Stage) -> dict:
     gemma = get_config("gemma3-1b")
     jamba = get_config("jamba-1.5-large-398b")
     minicpm = get_config("minicpm3-4b")
+    deepseek = get_config(DEEPSEEK)
+    # both stages: the dense layer 0 and the first MoE layers, stacked
+    deepseek_cut = dataclasses.replace(deepseek, stages=(
+        deepseek.stages[0], Stage(block=deepseek.stages[1].block,
+                                  repeat=DEEPSEEK_TRAIN_MOE_LAYERS)))
     return {
         "train gemma3-1b 6 layers f32": _cut(gemma, Stage,
                                              gemma.stages[0].block, 1),
@@ -822,7 +910,9 @@ def train_configs(get_config, Stage) -> dict:
         "train musicgen-large-reduced f32":
             get_config("musicgen-large-reduced"),
         "train qwen2-vl-2b whole f32": get_config("qwen2-vl-2b"),
-        "train musicgen-large whole f32": get_config("musicgen-large")}
+        "train musicgen-large whole f32": get_config("musicgen-large"),
+        DEEPSEEK_TRAIN: deepseek_cut,
+        DEEPSEEK_TRAIN + " remat off": deepseek_cut}
 
 
 def _cut(cfg, Stage, block, repeat):
@@ -853,8 +943,10 @@ def count_rooflines() -> dict:
                      dict(seq=1024, frontend_rows=nf), 4 * (nf + 1024)))
         plan.append((label, "decode", cfg, serve.run_config(dtype),
                      dict(seq=nf + 1024 + 32, pos=nf + 1024), 4))
-    for label, cfg in train_configs(get_config, Stage).items():
-        plan.append((label, "train", cfg, train.RUN_CONFIG,
+    cfgs = train_configs(get_config, Stage)
+    for label, cfg in cfgs.items():
+        plan.append((label, "train", cfg, dataclasses.replace(
+            train.RUN_CONFIG, **TRAIN_RC.get(label, {})),
                      dict(seq=1024, frontend_rows=cfg.n_frontend),
                      4 * (cfg.n_frontend + 1024)))
     out = {}
@@ -863,7 +955,34 @@ def count_rooflines() -> dict:
         out[f"{label} {kind}"] = roofline.roofline_terms(
             cost, dtype=rc.param_dtype, model_flops_per_chip=(
                 roofline.model_flops(count_active_params(cfg), kind, rows)))
+    out[f"{DEEPSEEK_TRAIN} train"]["recompute"] = recompute_flops(
+        roofline, cfgs[DEEPSEEK_TRAIN], train.RUN_CONFIG, out)
     return out
+
+
+def recompute_flops(roofline, cfg, rc, terms) -> dict:
+    """What recompute adds to the deepseek train step's counted FLOPs: the
+    difference of the remat-on and remat-off counts, against the forward of
+    the stacked MoE layers (a prefill of the cut less one of the dense
+    layer 0 alone) less each layer's last product, the shared experts' down
+    projection, which ``torch.utils.checkpoint`` does not recompute (it
+    stops once every tensor the backward saved is back, and that product's
+    output is none of them). Raises unless the two are equal."""
+    on = terms[f"{DEEPSEEK_TRAIN} train"]["counted_flops_per_chip"]
+    off = terms[f"{DEEPSEEK_TRAIN} remat off train"]["counted_flops_per_chip"]
+    rows = 4 * 1024
+    prefill = [roofline.step_cost(c, rc, "prefill", 4, seq=1024).flops
+               for c in (cfg, dataclasses.replace(cfg,
+                                                  stages=cfg.stages[:1]))]
+    moe = cfg.stages[1].block[0].mlp.moe
+    last = DEEPSEEK_TRAIN_MOE_LAYERS * 2 * rows * moe.n_shared \
+        * moe.d_expert * cfg.d_model
+    forward = prefill[0] - prefill[1]
+    if on - off != forward - last:
+        raise AssertionError(f"recompute: remat on - off {on - off} FLOPs, "
+                             f"forward {forward} less {last}")
+    return {"flops": on - off, "forward_flops": forward,
+            "not_recomputed_flops": last}
 
 
 class Rooflines:
@@ -1052,7 +1171,7 @@ def phase_train(torch, train, launches, roof, get_config, Stage) -> dict:
         ("delta_mask", "flash_attention", "flash_attention_bwd"))]
     total.append(train_steps(torch, train, launches, roof,
                              "train gemma3-1b 26 layers f32", cfgs, 2,
-                             ("flash_attention", "flash_attention_bwd")))
+                             ("flash_attention", "flash_attention_bwd"))[0])
     label = "train jamba-1.5-large-398b-reduced f32"
     total.append(train_kill_and_resume(
         torch, train, launches, roof, label, kill_args, cfgs[label],
@@ -1061,7 +1180,7 @@ def phase_train(torch, train, launches, roof, get_config, Stage) -> dict:
     total.append(train_steps(torch, train, launches, roof,
                              "train jamba-1.5-large L0 (Mamba + dense) f32",
                              cfgs, JAMBA_TRAIN_STEPS,
-                             ("ssm_scan", "ssm_scan_bwd")))
+                             ("ssm_scan", "ssm_scan_bwd"))[0])
     for label, needs in (
             ("train rwkv6-1.6b-reduced f32", ("delta_mask",)),
             ("train minicpm3-4b-reduced f32",
@@ -1070,11 +1189,12 @@ def phase_train(torch, train, launches, roof, get_config, Stage) -> dict:
             torch, train, launches, roof, label, kill_args, cfgs[label],
             needs))
     total.append(train_steps(torch, train, launches, roof,
-                             "train rwkv6-1.6b 24 layers f32", cfgs, 2, ()))
+                             "train rwkv6-1.6b 24 layers f32", cfgs, 2,
+                             ())[0])
     total.append(train_steps(
         torch, train, launches, roof,
         f"train minicpm3-4b {MINICPM_TRAIN_LAYERS} layers f32", cfgs, 2,
-        ("flash_attention", "flash_attention_bwd")))
+        ("flash_attention", "flash_attention_bwd"))[0])
     # the front ends: each step's front-end embeddings from the pipeline;
     # the whole models' attention sees 256 + 1024 and 64 + 1024 rows
     for arch in ("qwen2-vl-2b", "musicgen-large"):
@@ -1083,22 +1203,26 @@ def phase_train(torch, train, launches, roof, get_config, Stage) -> dict:
             torch, train, launches, roof, label, kill_args, cfgs[label],
             ("delta_mask", "flash_attention", "flash_attention_bwd")))
     for arch in ("qwen2-vl-2b", "musicgen-large"):
-        total.append(train_steps(torch, train, launches, roof,
-                                 f"train {arch} whole f32", cfgs, 2,
-                                 ("flash_attention", "flash_attention_bwd")))
+        total.append(train_steps(
+            torch, train, launches, roof, f"train {arch} whole f32", cfgs,
+            2, ("flash_attention", "flash_attention_bwd"))[0])
+    total.append(phase_train_remat(torch, train, launches, roof, cfgs))
     return {k: sum(c[k] for c in total) for k in launches}
 
 
 def train_steps(torch, train, launches, roof, label, cfgs, steps,
-                needs) -> dict:
-    """``steps`` steps of ``cfgs[label]`` without checkpoints; the kernels
-    in ``needs`` must launch. Returns the launches."""
+                needs) -> tuple:
+    """``steps`` steps of ``cfgs[label]`` without checkpoints, with the
+    label's ``TRAIN_RC`` overrides; the kernels in ``needs`` must launch.
+    Returns (the launches, the losses, the run's stats)."""
     t0 = time.time()
     cfg = cfgs[label]
     for k in launches:
         launches[k] = 0
+    rc = dataclasses.replace(train.RUN_CONFIG, **TRAIN_RC.get(label, {}))
     losses, stats = train.main(TRAIN_ARGS + ["--steps", str(steps),
-                                             "--ckpt-every", "0"], cfg=cfg)
+                                             "--ckpt-every", "0"], cfg=cfg,
+                               rc=rc)
     counts = dict(launches)
     torch.cuda.empty_cache()
     if not all(map(math.isfinite, losses)) or len(losses) != steps:
@@ -1113,7 +1237,35 @@ def train_steps(torch, train, launches, roof, label, cfgs, steps,
           f"bytes ({stats['peak_bytes'] / 1e9:.2f} GB); launches {counts}; "
           f"phase {time.time() - t0:.1f} s", flush=True)
     roof.report(label, "train", stats["step_ms"] / 1e3)
-    return counts
+    return counts, losses, stats
+
+
+def phase_train_remat(torch, train, launches, roof, cfgs) -> dict:
+    """deepseek-moe-16b cut to its dense layer 0 and DEEPSEEK_TRAIN_MOE_LAYERS
+    stacked MoE layers (f32, 64 experts top 6 and 2 shared): 2 steps
+    without checkpoints with recompute, then 2 without; the losses and the
+    parameters' CRC must be bit-equal, since recompute does not change the
+    function. Returns both runs' launches, summed."""
+    t0 = time.time()
+    runs = [train_steps(torch, train, launches, roof, label, cfgs, 2,
+                        ("flash_attention", "flash_attention_bwd"))
+            for label in (DEEPSEEK_TRAIN, DEEPSEEK_TRAIN + " remat off")]
+    (on, l_on, s_on), (off, l_off, s_off) = runs
+    if l_on != l_off or s_on["params_crc"] != s_off["params_crc"]:
+        raise AssertionError(f"{DEEPSEEK_TRAIN}: remat on {l_on}, crc "
+                             f"{s_on['params_crc']}; off {l_off}, crc "
+                             f"{s_off['params_crc']}")
+    rec = roof.terms[f"{DEEPSEEK_TRAIN} train"]["recompute"]
+    print(f"remat [{card()}]: {DEEPSEEK_TRAIN}, 2 steps: losses {l_on} and "
+          f"params CRC {s_on['params_crc']} bit-equal with recompute on and "
+          f"off; step {s_on['step_ms']:.1f} ms on, {s_off['step_ms']:.1f} ms "
+          f"off; peak {s_on['peak_bytes'] / 1e9:.2f} GB on, "
+          f"{s_off['peak_bytes'] / 1e9:.2f} GB off; recompute counted "
+          f"{rec['flops'] / 1e12:.4f} TFLOP (the MoE layers' forward "
+          f"{rec['forward_flops'] / 1e12:.4f} less the shared experts' down "
+          f"projections {rec['not_recomputed_flops'] / 1e12:.4f}); phase "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return {k: on[k] + off[k] for k in launches}
 
 
 def _example(name):
@@ -1198,6 +1350,86 @@ def _greedy(torch, tf, cfg, rc, params, caches, prompts, n_dec):
                                         prompts.shape[1] + i, caches, rc)
         steps.append(full(logits))
     return torch.cat(toks, 1), steps
+
+
+def phase_moe_knobs(torch, ops, get_config) -> dict:
+    """The whole deepseek-moe-16b in bf16 (serving's RunConfig), one set of
+    weights, through ``prefill`` and ``decode_step``: prefill 4 x 1024 and
+    MOE_DECODE greedy steps under (i) the defaults, (ii) capacity factor
+    MOE_LOW_FACTOR, twice: every step's logits bit-equal between the two,
+    and the prefill's unequal to (i)'s, and (iii) factor MOE_NO_DROP, once
+    with the policy's four groups and once with ``moe_groups=1``: prefill
+    logits within MOE_GROUPS_TOL. Returns the launches of every run."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    t0 = time.time()
+    cfg, dev, b, s = get_config(DEEPSEEK), torch.device("cuda"), 4, 1024
+    rc = serve.run_config(torch.bfloat16)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            rc, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+
+    def run(**knobs):
+        """(every step's logits, prefill ms, decode ms a step)."""
+        krc = dataclasses.replace(rc, **knobs)
+        caches = tf.init_cache(cfg, b, s + MOE_DECODE, krc, dev)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        logits, caches = tf.prefill(cfg, params, prompts, caches, krc)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        steps = [logits]
+        for i in range(MOE_DECODE):
+            logits, caches = tf.decode_step(
+                cfg, params, logits.argmax(-1)[:, None], s + i, caches, krc)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        t3 = time.time()
+        del caches
+        torch.cuda.empty_cache()
+        return steps, (t2 - t1) * 1e3, (t3 - t2) * 1e3 / MOE_DECODE
+
+    default = run()
+    low, low_again = run(capacity_factor=MOE_LOW_FACTOR), run(
+        capacity_factor=MOE_LOW_FACTOR)
+    groups = run(capacity_factor=MOE_NO_DROP)
+    one = run(capacity_factor=MOE_NO_DROP, moe_groups=1)
+    counts = dict(ops.LAUNCHES)
+    del params
+    torch.cuda.empty_cache()
+    if not all(torch.isfinite(x).all() for r in (default, low, groups, one)
+               for x in r[0]):
+        raise AssertionError("moe_knobs: non-finite logits")
+    if not all(torch.equal(x, y) for x, y in zip(low[0], low_again[0])):
+        raise AssertionError(f"moe_knobs: capacity_factor={MOE_LOW_FACTOR} "
+                             "runs differ")
+    low_diff = (low[0][0] - default[0][0]).abs().max().item()
+    if torch.equal(low[0][0], default[0][0]):
+        raise AssertionError(f"moe_knobs: capacity_factor={MOE_LOW_FACTOR} "
+                             "did not change the prefill logits")
+    err = (one[0][0].float() - groups[0][0].float()).abs().max().item()
+    if err > MOE_GROUPS_TOL:
+        raise AssertionError(f"moe_knobs: moe_groups=1 prefill logits "
+                             f"differ by {err}")
+    if counts["flash_attention"] <= 0:
+        raise AssertionError(f"moe_knobs: launches {counts}")
+    times = "; ".join(
+        f"{name} prefill {r[1]:.2f} ms, decode {r[2]:.2f} ms a step"
+        for name, r in (("defaults", default),
+                        (f"factor {MOE_LOW_FACTOR}", low),
+                        (f"factor {MOE_NO_DROP:.4f}", groups),
+                        (f"factor {MOE_NO_DROP:.4f}, 1 group", one)))
+    print(f"moe_knobs [{card()}]: {DEEPSEEK} bf16, batch {b}, prompt {s}, "
+          f"{MOE_DECODE} greedy steps; factor {MOE_LOW_FACTOR}: two runs "
+          f"bit-equal, prefill logits {low_diff:.3e} from the defaults'; "
+          f"factor {MOE_NO_DROP:.4f}: one group against four, max abs "
+          f"prefill logit diff {err:.3e} (tol {MOE_GROUPS_TOL:g}); {times}; "
+          f"launches {counts}; phase {time.time() - t0:.1f} s", flush=True)
+    return counts
 
 
 def phase_mesh(torch, ops, get_config) -> dict:
@@ -1514,13 +1746,11 @@ def main(argv) -> int:
             "ssm_scan": phase_ssm(torch, ops, ref, rl, ssm),
             "flash_attention_bwd": phase_flash_bwd(torch, ref, rl, flash),
             "ssm_scan_bwd": phase_ssm_bwd(torch, ref, rl, ssm)}
-        for arch in ("gemma3-1b-reduced", "jamba-1.5-large-398b-reduced",
-                     "rwkv6-1.6b-reduced", "minicpm3-4b-reduced",
-                     "qwen2-vl-2b-reduced", "musicgen-large-reduced"):
-            phase_reference(torch, Model, RunConfig, get_config,
-                            tree_to_torch, arch)
-            phase_train_reference(torch, Model, RunConfig, get_config,
-                                  tree_to_torch, tree_leaves, arch)
+        for cfg, serve_over, train_over in reference_runs(get_config):
+            phase_reference(torch, Model, RunConfig, cfg, tree_to_torch,
+                            serve_over)
+            phase_train_reference(torch, Model, RunConfig, cfg,
+                                  tree_to_torch, tree_leaves, train_over)
         out, _ = counter.communicate(timeout=900)
         if counter.returncode != 0:
             raise RuntimeError(f"roofline counts: exit code "
@@ -1543,6 +1773,7 @@ def main(argv) -> int:
         run = serve_once if once else phase_serve
         runs.append(run(torch, serve, ops.LAUNCHES, roof, label, args, needs,
                         cfg))
+    runs.append(phase_moe_knobs(torch, ops, get_config))
     child = run_train_phase(torch, terms)
     runs += [child["launches"], child["examples"], child["mesh_train"]]
     roof.entries += child["roofline"]

@@ -28,11 +28,12 @@ steps:
 ``roofline`` is ``repro_torch.roofline.roofline_terms`` of the counted
 cost, at H100 constants (its docstring), with the model FLOPs a chip.
 
-Flags that name the JAX package's strategies (``--attn-impl``,
-``--chunk-q``/``--chunk-kv``, ``--mamba-chunk``, ``--capacity-factor``,
-``--moe-groups``, ``--no-remat``, ``--dump-hlo``) raise: the port runs one
-flash kernel and one scan launch where JAX chooses among jnp strategies,
-always recomputes a stacked stage in training, and has no HLO.
+``--capacity-factor``, ``--moe-groups`` and ``--no-remat`` set the
+``RunConfig`` knobs of the same names, as in the JAX dry run. Flags that
+name the JAX package's strategies (``--attn-impl``,
+``--chunk-q``/``--chunk-kv``, ``--mamba-chunk``, ``--dump-hlo``) raise:
+the port runs one flash kernel and one scan launch where JAX chooses among
+jnp strategies, and has no HLO.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b \\
         --shape train_4k --mesh pod1
@@ -73,11 +74,6 @@ _JAX_ONLY = {
     "chunk_q": "the flash kernel tiles queries itself",
     "chunk_kv": "the flash kernel tiles keys itself",
     "mamba_chunk": "the port's scan is one kernel launch over the sequence",
-    "capacity_factor": "the port's RunConfig keeps the reference's default "
-                       "1.25 (no knob)",
-    "moe_groups": "the port's RunConfig keeps the reference's automatic "
-                  "groups (no knob)",
-    "no_remat": "the port always recomputes a stacked stage in training",
     "dump_hlo": "the port has no HLO",
 }
 
@@ -225,10 +221,11 @@ def main(argv=None):
     ap.add_argument("--no-mla-absorb", action="store_true")
     ap.add_argument("--fsdp", default=None, choices=[None, "on", "off"])
     ap.add_argument("--out-dir", default=RESULTS_DIR)
-    for name in ("attn-impl", "chunk-kv", "chunk-q", "mamba-chunk",
-                 "capacity-factor", "moe-groups"):
-        ap.add_argument(f"--{name}", default=None)
+    ap.add_argument("--capacity-factor", type=float, default=None)
+    ap.add_argument("--moe-groups", type=int, default=None)
     ap.add_argument("--no-remat", action="store_true")
+    for name in ("attn-impl", "chunk-kv", "chunk-q", "mamba-chunk"):
+        ap.add_argument(f"--{name}", default=None)
     ap.add_argument("--dump-hlo", action="store_true")
     args = ap.parse_args(argv)
     for key, why in _JAX_ONLY.items():
@@ -237,8 +234,11 @@ def main(argv=None):
                              f"strategy; {why}")
 
     rc_over = {}
-    if args.rwkv_chunk is not None:
-        rc_over["rwkv_chunk"] = args.rwkv_chunk
+    for k in ("rwkv_chunk", "capacity_factor", "moe_groups"):
+        if getattr(args, k) is not None:
+            rc_over[k] = getattr(args, k)
+    if args.no_remat:
+        rc_over["remat"] = False
     if args.no_mla_absorb:
         rc_over["mla_absorb"] = False
     fsdp = None if args.fsdp is None else (args.fsdp == "on")

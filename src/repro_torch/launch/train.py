@@ -99,11 +99,12 @@ def params_crc(params) -> int:
     return crc
 
 
-def main(argv=None, cfg=None):
+def main(argv=None, cfg=None, rc=None):
     """Returns (losses, stats). ``losses`` holds every step run, a step
     re-run after a failover included. ``cfg`` (an ``ArchConfig``)
     overrides ``--arch``, for a config that has no name, such as a depth
-    cut."""
+    cut; ``rc`` (a ``RunConfig``) overrides ``RUN_CONFIG``, for knobs the
+    command line does not take, such as ``remat``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b-reduced")
     ap.add_argument("--steps", type=int, default=20)
@@ -127,7 +128,7 @@ def main(argv=None, cfg=None):
     args = ap.parse_args(argv)
 
     cfg = cfg or get_config(args.arch)
-    rc = RUN_CONFIG
+    rc = rc or RUN_CONFIG
     dev = device_mod.resolve(args.device)
     model = Model(cfg, rc, device=dev)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=5)

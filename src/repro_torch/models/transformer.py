@@ -5,9 +5,9 @@ stages; each stage is a superblock (tuple of LayerSpec) repeated R times.
 As in the JAX package, a stage with R > 1 keeps its parameters and caches
 stacked along a leading dim of size R, so leaf names and shapes match the
 reference one to one; where JAX scans over that dim, this module loops
-over it in Python, and in training recomputes each repeat in the backward
-(``torch.utils.checkpoint``) where JAX wraps the scan body in
-``jax.checkpoint``.
+over it in Python, and in training (``RunConfig.remat``, on by default)
+recomputes each repeat in the backward (``torch.utils.checkpoint``) where
+JAX wraps the scan body in ``jax.checkpoint``.
 
 Mixers are GQA attention, MLA (latent attention with a compressed
 cache), Mamba and RWKV6; MLPs are dense or MoE (RWKV's channel mix takes
@@ -60,6 +60,9 @@ class RunConfig:
     cache_dtype: Any = torch.bfloat16
     loss_chunk: int = 1024  # seq-chunked vocab xent (recomputed)
     rwkv_chunk: int = 64  # wkv recurrence chunk (train and prefill)
+    capacity_factor: float = 1.25  # MoE slots an expert: S*k*factor/E + 1
+    moe_groups: int = 0  # 0 = auto policy (per-seq train, 16-token decode)
+    remat: bool = True  # recompute each repeat of a stage in the backward
     mla_absorb: bool = True  # MLA decode in the latent space
     head_pad: int = 1  # pad head counts to this multiple (TP divisibility)
     # set by the launch layer (launch/sharding.run_config_for):
@@ -226,6 +229,7 @@ def _apply_block(cfg, spec: LayerSpec, rc, params, x, *, mode, positions,
     elif spec.mlp.kind == "moe":
         y, aux = moe_mod.apply_moe(params["mlp"], h, spec.mlp.moe,
                                    spec.mlp.act, n_groups=n_groups,
+                                   capacity_factor=rc.capacity_factor,
                                    shard=rc.shard)
         x = x + y
     elif spec.kind == "rwkv":
@@ -268,10 +272,11 @@ def _index(tree, r: int):
 
 def _apply_stage(cfg, stage: Stage, rc, params, x, *, mode, positions, pos,
                  cache, n_groups):
-    """Returns (x, the stage's summed MoE aux loss). In train mode each
-    repeat of a stacked stage is recomputed in the backward, as the JAX
-    package's ``jax.checkpoint`` of its scan body; a stage of one repeat is
-    not recomputed, as there."""
+    """Returns (x, the stage's summed MoE aux loss). In train mode with
+    ``rc.remat`` each repeat of a stacked stage is recomputed in the
+    backward, as the JAX package's ``jax.checkpoint`` of its scan body;
+    without it autograd keeps every repeat's activations. A stage of one
+    repeat is not recomputed, as there."""
     if stage.repeat == 1:
         return _apply_superblock(cfg, stage, rc, params, x, mode=mode,
                                  positions=positions, pos=pos, cache=cache,
@@ -284,7 +289,7 @@ def _apply_stage(cfg, stage: Stage, rc, params, x, *, mode, positions, pos,
                 positions=positions, pos=pos,
                 cache=None if cache is None else _index(cache, r),
                 n_groups=n_groups)
-        if mode == "train":
+        if rc.remat and mode == "train":
             x, aux = checkpoint(body, x, use_reentrant=False,
                                 preserve_rng_state=False)
         else:
@@ -331,7 +336,8 @@ def forward(cfg: ArchConfig, params, tokens, *, frontend=None,
     embeddings prepended in train and prefill. Returns (hidden, caches,
     aux): hidden is the final-norm output over all S + Nf rows; the caches,
     when given, are updated in place; aux is the summed MoE aux loss (0.0
-    without MoE). ``rc`` gives the RWKV chunk and the MLA decode path."""
+    without MoE). ``rc`` gives the RWKV chunk, the MLA decode path, the MoE
+    capacity factor and groups, and whether training recomputes."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the port runs train, prefill and "
                          "decode")
@@ -346,7 +352,7 @@ def forward(cfg: ArchConfig, params, tokens, *, frontend=None,
         total = s + (frontend.shape[1] if frontend is not None else 0)
         positions = torch.arange(total, device=tokens.device)
         x = _embed(cfg, params, tokens, frontend, positions[None], rc)
-    n_groups = moe_mod.default_groups(b, x.shape[1], mode)
+    n_groups = rc.moe_groups or moe_mod.default_groups(b, x.shape[1], mode)
     if rc.shard is not None:
         x = rc.shard(x, ("data", None, None))
     aux_total = 0.0
