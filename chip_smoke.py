@@ -15,9 +15,12 @@ Phases, one printed line each; any failure raises and exits non-zero:
              S=1024, D=128, global), at minicpm3-4b's MLA heads (f32
              and bf16, B=4, H=Hk=40, S=1024, D=96, Dv=64), at
              musicgen-large's (f32, B=4, H=Hk=32, S=64+1024, D=64), at
-             qwen2-vl-2b's (f32, B=4, H=12, Hk=2, S=256+1024, D=128) and at
+             qwen2-vl-2b's (f32, B=4, H=12, Hk=2, S=256+1024, D=128), at
              deepseek-moe-16b's (bf16 and f32, B=4, H=Hk=16, S=1024,
-             D=128, global) against its plain version; two launches bit-equal (f32 and
+             D=128, global), at stablelm-12b's (bf16 and f32, B=4, H=32,
+             Hk=8, S=1024, D=160), at phi3.5-moe's (bf16, H=32, Hk=8,
+             D=128) and at qwen1.5-32b's (bf16, H=Hk=40, D=128) against
+             its plain version; two launches bit-equal (f32 and
              bf16); kernel, plain, bound and library
              (scaled_dot_product_attention) ms, and the kernels' device ms
              alone (torch.profiler; f32: the pre-pass included), apart from
@@ -42,8 +45,9 @@ Phases, one printed line each; any failure raises and exits non-zero:
              none; ragged S=1000), minicpm3-4b's (f32, B=4, H=Hk=40,
              S=1024, D=96, Dv=64), musicgen-large's (H=Hk=32, S=1088, D=64),
              qwen2-vl-2b's (H=12, Hk=2, S=1280, D=128; a GQA group of 6 in
-             its group sum) and deepseek-moe-16b's (H=Hk=16, S=1024,
-             D=128), fed the forward kernel's output and
+             its group sum), deepseek-moe-16b's (H=Hk=16, S=1024,
+             D=128) and stablelm-12b's (H=32, Hk=8, S=1024, D=160: its
+             dK/dV products run 192 wide), fed the forward kernel's output and
              log-sum-exp, against its plain version; two launches
              bit-equal; kernel, plain, bound and library (the backward of
              scaled_dot_product_attention) ms; each line names the path,
@@ -52,7 +56,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
              bound of the padded work
   reference  gemma3-1b-reduced, jamba-1.5-large-398b-reduced,
              rwkv6-1.6b-reduced, minicpm3-4b-reduced, qwen2-vl-2b-reduced,
-             musicgen-large-reduced and deepseek-moe-16b-reduced (its MoE
+             musicgen-large-reduced, qwen1.5-32b-reduced,
+             stablelm-12b-reduced (also once with its published 160-wide
+             heads, 4 on 1 kv head), phi3.5-moe-42b-a6.6b-reduced and
+             deepseek-moe-16b-reduced (its MoE
              stage stacked twice) prefill + decode on the card against the
              same weights on the CPU, f32 (qwen2-vl and musicgen with 4
              random front-end embeddings before the prompt, decoding after
@@ -98,20 +105,34 @@ Phases, one printed line each; any failure raises and exits non-zero:
   minicpm3   the same serve of full-width minicpm3-4b (f32, 62 MLA
              layers, a compressed 302 MB cache): delta_mask and
              flash_attention (D=96, Dv=64) launched on that path
-  qwen2-vl   the same serve of the whole qwen2-vl-2b (f32, 28 layers, GQA
-             12 on 2 heads): 256 stub patch embeddings prefilled before
-             each 1024-token prompt, decode from position 1280, a 301 MB
-             KV cache; delta_mask and flash_attention launched
+  qwen2-vl   the same serve of full-width qwen2-vl-2b cut to its first 14
+             of 28 layers (f32, GQA 12 on 2 heads): 256 stub patch
+             embeddings prefilled before each 1024-token prompt, decode
+             from position 1280, a 150 MB KV cache; delta_mask and
+             flash_attention launched
   musicgen   the same serve of full-width musicgen-large cut to its first
              4 of 48 layers (f32, MHA 32 heads of 64, sinusoidal
              positions, 64 conditioning embeddings before each prompt, a
              0.29 GB KV cache); then the whole 48 layers once without
              snapshots (a 3.52 GB cache): prefill and 32 decode steps,
              tokens in range and logits finite
-  deepseek   the same serve of the whole deepseek-moe-16b in bf16 (28
-             layers, MHA 16 heads of 128, 64 routed experts top 6 and 2
-             shared in layers 1-27: 16.4e9 parameters, a 0.97 GB KV cache):
-             delta_mask and flash_attention launched on that path
+  deepseek   the same serve of full-width deepseek-moe-16b in bf16 cut to
+             its dense layer 0 and its first 4 MoE layers (MHA 16 heads of
+             128, 64 routed experts top 6 and 2 shared; 2.85e9 parameters,
+             a 0.17 GB KV cache): delta_mask and flash_attention launched
+             on that path
+  stablelm   the same serve of the whole stablelm-12b in bf16 (40 layers,
+             GQA 32 on 8 heads of 160, layernorm: 12.1e9 parameters, a
+             0.87 GB KV cache): delta_mask and flash_attention (D=160)
+             launched on that path
+  phi3.5     phi3.5-moe-42b-a6.6b cut to its first 12 of 32 layers (bf16,
+             GQA 32 on 8 heads of 128, 16 experts top 2 in every layer:
+             15.9e9 parameters; the whole model is 83.7 GB) and
+  qwen1.5    qwen1.5-32b cut to its first 32 of 64 layers (bf16, MHA 40
+             heads of 128, qkv bias, 152,064 vocabulary: 18.4e9
+             parameters; the whole model is 70.4 GB), each served once
+             without snapshots: prefill and 32 decode steps, tokens in
+             range and logits finite, flash_attention launched
   moe_knobs  the whole deepseek-moe-16b in bf16, one set of weights,
              through prefill and decode_step: prefill 4 x 1024 and 8 greedy
              steps with the defaults; with capacity_factor=0.1 twice
@@ -154,7 +175,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
              each, and the counted FLOPs that recompute adds (checked
              equal to the MoE layers' forward less each layer's shared
              experts' down projection, which torch's checkpoint does not
-             recompute). The examples and train phases
+             recompute); then stablelm-12b cut to its first 4 of 40
+             layers (f32, 2.14e9 parameters, a 34.2 GB train state), 2
+             steps, flash_attention and its backward launched at D=160.
+             The examples and train phases
              run in a child process with CUBLAS_WORKSPACE_CONFIG set, which
              the deterministic train step needs and which would slow the
              serve phases' decode
@@ -172,11 +196,13 @@ and without recompute); R is repro_torch.roofline's (the model FLOPs, 6 or
 S is model over counted FLOPs. Then one JSON line {"roofline": [...]}, an
 entry for each of those steps; one JSON line {"dryrun": [...]}, the five
 cells' counted terms; one JSON line with every kernel's numbers
-(launches summed over the main-path runs: the seven serve runs with a node
-kill and the whole musicgen-large serve, the moe_knobs runs, the
+(launches summed over the main-path runs: the nine serve runs with a node
+kill and the three served once (the whole musicgen-large, phi3.5-moe's 12
+layers, qwen1.5-32b's 32), the moe_knobs runs, the
 quickstart and the two example runs with a kill, the six train runs with a
 node kill, and the Jamba L0, gemma3-1b 26-layer, rwkv6-1.6b, minicpm3
-8-layer, qwen2-vl-2b, musicgen-large and both deepseek-moe-16b train runs,
+8-layer, qwen2-vl-2b, musicgen-large, both deepseek-moe-16b and the
+stablelm-12b 4-layer train runs,
 and the mesh phase's runs (serve and head_pad, and the mesh train step);
 flash_attention's entry is gemma3-1b's f32 case, flash_attention_bwd's its
 window-512 train case, each with every case under "cases"; each bound from
@@ -219,6 +245,10 @@ MINICPM_ARGS = ["--arch", "minicpm3-4b"] + SERVE_ARGS[2:]
 # of 62: the whole model's 66 GB train state leaves no room for activations
 MINICPM_TRAIN_LAYERS = 8
 QWEN_VL_ARGS = ["--arch", "qwen2-vl-2b"] + SERVE_ARGS[2:]
+# of 28 for the run with snapshots (the whole model's took 58 s), to keep
+# the whole script inside its time limit beside the stablelm-12b serve
+# (~240 s); the whole model trains
+QWEN_VL_SERVE_LAYERS = 14
 MUSICGEN_ARGS = ["--arch", "musicgen-large"] + SERVE_ARGS[2:]
 # of 48 for the runs with snapshots: the whole model's 3.52 GB cache takes
 # minutes to snapshot four times through the cluster; the whole model
@@ -229,12 +259,31 @@ DEEPSEEK = "deepseek-moe-16b"
 DEEPSEEK_ARGS = ["--arch", DEEPSEEK] + SERVE_ARGS[2:] + ["--dtype",
                                                           "bfloat16"]
 # of 27 stacked MoE layers, after the dense layer 0: 2.85e9 parameters, a
-# 45.7 GB f32 train state
-DEEPSEEK_TRAIN_MOE_LAYERS = 4
-DEEPSEEK_TRAIN = f"train {DEEPSEEK} {1 + DEEPSEEK_TRAIN_MOE_LAYERS} layers f32"
+# 45.7 GB f32 train state. Serving with snapshots runs the same cut (a
+# 0.17 GB cache; the whole model's 0.97 GB took 164 s to serve three times
+# with the cluster), and the moe_knobs phase the whole model
+DEEPSEEK_MOE_LAYERS = 4
+DEEPSEEK_TRAIN = f"train {DEEPSEEK} {1 + DEEPSEEK_MOE_LAYERS} layers f32"
 # RunConfig overrides of a train phase, by its label (count_rooflines and
 # the train phase read them)
 TRAIN_RC = {DEEPSEEK_TRAIN + " remat off": {"remat": False}}
+STABLELM = "stablelm-12b"  # 40 layers, GQA 32 on 8 heads of 160
+STABLELM_ARGS = ["--arch", STABLELM] + SERVE_ARGS[2:] + ["--dtype",
+                                                          "bfloat16"]
+# of 40: 2.14e9 parameters, a 34.2 GB f32 train state (the whole model's
+# would be 194 GB)
+STABLELM_TRAIN_LAYERS = 4
+STABLELM_TRAIN = f"train {STABLELM} {STABLELM_TRAIN_LAYERS} layers f32"
+PHI = "phi3.5-moe-42b-a6.6b"  # 32 layers, each 16 experts top 2
+PHI_ARGS = ["--arch", PHI] + SERVE_ARGS[2:] + ["--dtype", "bfloat16"]
+# of 32: the whole model is 83.7 GB in bf16; 12 layers are 31.7 GB, beside
+# the 20.1 GB f32 sample of the stacked expert leaf at init
+PHI_SERVE_LAYERS = 12
+QWEN = "qwen1.5-32b"  # 64 layers, MHA 40 heads of 128, qkv bias
+QWEN_ARGS = ["--arch", QWEN] + SERVE_ARGS[2:] + ["--dtype", "bfloat16"]
+# of 64: the whole model is 70.4 GB in bf16; 32 layers are 36.8 GB, beside
+# the 17.9 GB f32 sample of the stacked MLP leaf at init
+QWEN_SERVE_LAYERS = 32
 MOE_DECODE = 8  # greedy decode steps of the moe_knobs phase
 MOE_LOW_FACTOR = 0.1  # 10 slots an expert of a 1024-token group: 90 % drop
 # E / top_k: an expert's capacity covers every token of its group
@@ -411,6 +460,7 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
     musicgen = (4, 32, 32, 64, 64)  # MHA, prefill of 64 + 1024 rows
     qwen_vl = (4, 12, 2, 128, 128)  # GQA group 6, prefill of 256 + 1024
     deepseek = (4, 16, 16, 128, 128)  # deepseek-moe-16b's MHA
+    stablelm = (4, 32, 8, 160, 160)  # GQA 4, heads 160 wide: 5120 / 32
     cases = [(gemma, torch.float32, 1024, 512),
              (gemma, torch.float32, 1024, None),
              (gemma, torch.bfloat16, 1024, 512),
@@ -423,7 +473,11 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
              (musicgen, torch.float32, 1088, None),
              (qwen_vl, torch.float32, 1280, None),
              (deepseek, torch.bfloat16, 1024, None),
-             (deepseek, torch.float32, 1024, None)]
+             (deepseek, torch.float32, 1024, None),
+             (stablelm, torch.bfloat16, 1024, None),
+             (stablelm, torch.float32, 1024, None),
+             ((4, 32, 8, 128, 128), torch.bfloat16, 1024, None),  # phi3.5
+             ((4, 40, 40, 128, 128), torch.bfloat16, 1024, None)]  # qwen1.5
     results = {}
     for (b, h, hk, d, dv), dtype, s, window in cases:
         gen = torch.Generator(device=dev).manual_seed(s + (window or 0) + h)
@@ -491,7 +545,7 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
         if not same:
             raise AssertionError(f"flash_attention {label}: two launches "
                                  f"differ")
-        results[(name, s, window, h)] = {
+        results[(name, s, window, h, d)] = {
             "label": label, "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
@@ -499,7 +553,7 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
     # the kernel's entry: gemma3-1b's own case (f32 prefill of a local
     # layer, 22 of its 26), with the worst error of all cases, and every
     # case beside it
-    main = dict(results[("float32", 1024, 512, 4)])
+    main = dict(results[("float32", 1024, 512, 4, 256)])
     del main["label"]
     main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
     main["cases"] = [{key: r[key] for key in (
@@ -514,14 +568,15 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
     (window 512), the global layer, and a ragged S; then at minicpm3-4b's
     MLA heads (D = 96, Dv = 64, H = Hk = 40), musicgen-large's (MHA, D = 64,
     S = 64 + 1024), qwen2-vl-2b's (a GQA group of 6, D = 128, S = 256 +
-    1024) and deepseek-moe-16b's (MHA, D = 128). Its bound counts the five
+    1024), deepseek-moe-16b's (MHA, D = 128) and stablelm-12b's (GQA 4,
+    D = 160, whose dK/dV products run 192 wide). Its bound counts the five
     products (Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over the pairs the band
     holds."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gemma, mla = (4, 4, 1, 256, 256), (4, 40, 40, 96, 64)
     musicgen, qwen_vl = (4, 32, 32, 64, 64), (4, 12, 2, 128, 128)
-    deepseek = (4, 16, 16, 128, 128)
+    deepseek, stablelm = (4, 16, 16, 128, 128), (4, 32, 8, 160, 160)
     results = {}
     for (b, h, hk, d, dv), s, window in ((gemma, 1024, 512),
                                          (gemma, 1024, None),
@@ -529,7 +584,8 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
                                          (mla, 1024, None),
                                          (musicgen, 1088, None),
                                          (qwen_vl, 1280, None),
-                                         (deepseek, 1024, None)):
+                                         (deepseek, 1024, None),
+                                         (stablelm, 1024, None)):
         gen = torch.Generator(device=dev).manual_seed(7 * s + (window or 0)
                                                       + h)
         q, k, v = (torch.randn(shape, generator=gen, device=dev)
@@ -604,13 +660,13 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
         if not ok:
             raise AssertionError(f"flash_attention_bwd {label}: max abs err "
                                  f"{err}")
-        results[(s, window, h)] = {
+        results[(s, window, h, d)] = {
             "label": label, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
         del q, k, v, dout, out, lse, got, again, exp, qr, kr, vr, o_lib
         torch.cuda.empty_cache()
-    main = dict(results[(1024, 512, 4)])  # gemma's local layers, 5 of 6
+    main = dict(results[(1024, 512, 4, 256)])  # gemma's local layers
     del main["label"]
     main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
     main["cases"] = [{key: r[key] for key in (
@@ -828,22 +884,32 @@ def phase_train_reference(torch, Model, RunConfig, cfg, tree_to_torch,
         raise AssertionError(f"reference train {arch}: card and CPU differ")
 
 
-def reference_runs(get_config) -> list:
+def reference_runs(get_config, Stage) -> list:
     """(config, serve overrides, train overrides) of each card-against-CPU
     reference. deepseek-moe-16b-reduced's MoE stage is stacked twice, so
     that training has a repeat to recompute, and runs twice: with the
     defaults, then with the knobs set (a factor that drops, one group, no
-    recompute)."""
+    recompute). stablelm-12b-reduced runs once more with its published
+    head width, 160 (4 heads on 1 kv head), where reducing makes every
+    head 16 wide."""
     runs = [(get_config(arch), {}, {}) for arch in (
         "gemma3-1b-reduced", "jamba-1.5-large-398b-reduced",
         "rwkv6-1.6b-reduced", "minicpm3-4b-reduced", "qwen2-vl-2b-reduced",
-        "musicgen-large-reduced")]
+        "musicgen-large-reduced", QWEN + "-reduced", STABLELM + "-reduced",
+        PHI + "-reduced")]
     ds = get_config(DEEPSEEK + "-reduced")
     ds = dataclasses.replace(ds, stages=(
         ds.stages[0], dataclasses.replace(ds.stages[1], repeat=2)))
+    sl = get_config(STABLELM + "-reduced")
+    (layer,) = sl.stages[0].block
+    wide = dataclasses.replace(layer, attn=dataclasses.replace(
+        layer.attn, head_dim=160, n_heads=4, n_kv_heads=1))
+    sl = dataclasses.replace(sl, name=f"{sl.name} (4 heads on 1, 160 wide)",
+                             stages=(Stage(block=(wide,), repeat=1),))
     return runs + [(ds, {}, {}),
                    (ds, {"capacity_factor": MOE_LOW_FACTOR, "moe_groups": 1},
-                    {"remat": False})]
+                    {"remat": False}),
+                   (sl, {}, {})]
 
 
 def _ref_label(cfg, overrides) -> str:
@@ -860,6 +926,8 @@ def serve_runs(get_config, Stage) -> list:
     runs once without snapshots) of every serve phase."""
     jamba = get_config("jamba-1.5-large-398b")
     musicgen = get_config("musicgen-large")
+    phi, qwen = get_config(PHI), get_config(QWEN)
+    qwen_vl = get_config("qwen2-vl-2b")
     return [
         ("serve gemma3-1b f32", SERVE_ARGS, ("delta_mask", "flash_attention"),
          get_config("gemma3-1b"), False),
@@ -870,16 +938,27 @@ def serve_runs(get_config, Stage) -> list:
          get_config("rwkv6-1.6b"), False),
         ("serve minicpm3-4b f32", MINICPM_ARGS,
          ("delta_mask", "flash_attention"), get_config("minicpm3-4b"), False),
-        ("serve qwen2-vl-2b f32", QWEN_VL_ARGS,
-         ("delta_mask", "flash_attention"), get_config("qwen2-vl-2b"), False),
+        (f"serve qwen2-vl-2b {QWEN_VL_SERVE_LAYERS} layers f32", QWEN_VL_ARGS,
+         ("delta_mask", "flash_attention"),
+         _cut(qwen_vl, Stage, qwen_vl.stages[0].block, QWEN_VL_SERVE_LAYERS),
+         False),
         (f"serve musicgen-large {MUSICGEN_SERVE_LAYERS} layers f32",
          MUSICGEN_ARGS, ("delta_mask", "flash_attention"),
          _cut(musicgen, Stage, musicgen.stages[0].block,
               MUSICGEN_SERVE_LAYERS), False),
         ("serve musicgen-large 48 layers f32", MUSICGEN_ARGS,
          ("flash_attention",), musicgen, True),
-        (f"serve {DEEPSEEK} bf16", DEEPSEEK_ARGS,
-         ("delta_mask", "flash_attention"), get_config(DEEPSEEK), False)]
+        (f"serve {DEEPSEEK} {1 + DEEPSEEK_MOE_LAYERS} layers bf16",
+         DEEPSEEK_ARGS, ("delta_mask", "flash_attention"),
+         _deepseek_cut(get_config, Stage), False),
+        (f"serve {STABLELM} bf16", STABLELM_ARGS,
+         ("delta_mask", "flash_attention"), get_config(STABLELM), False),
+        (f"serve {PHI} {PHI_SERVE_LAYERS} layers bf16", PHI_ARGS,
+         ("flash_attention",),
+         _cut(phi, Stage, phi.stages[0].block, PHI_SERVE_LAYERS), True),
+        (f"serve {QWEN} {QWEN_SERVE_LAYERS} layers bf16", QWEN_ARGS,
+         ("flash_attention",),
+         _cut(qwen, Stage, qwen.stages[0].block, QWEN_SERVE_LAYERS), True)]
 
 
 def train_configs(get_config, Stage) -> dict:
@@ -887,11 +966,8 @@ def train_configs(get_config, Stage) -> dict:
     gemma = get_config("gemma3-1b")
     jamba = get_config("jamba-1.5-large-398b")
     minicpm = get_config("minicpm3-4b")
-    deepseek = get_config(DEEPSEEK)
-    # both stages: the dense layer 0 and the first MoE layers, stacked
-    deepseek_cut = dataclasses.replace(deepseek, stages=(
-        deepseek.stages[0], Stage(block=deepseek.stages[1].block,
-                                  repeat=DEEPSEEK_TRAIN_MOE_LAYERS)))
+    stablelm = get_config(STABLELM)
+    deepseek_cut = _deepseek_cut(get_config, Stage)
     return {
         "train gemma3-1b 6 layers f32": _cut(gemma, Stage,
                                              gemma.stages[0].block, 1),
@@ -912,7 +988,18 @@ def train_configs(get_config, Stage) -> dict:
         "train qwen2-vl-2b whole f32": get_config("qwen2-vl-2b"),
         "train musicgen-large whole f32": get_config("musicgen-large"),
         DEEPSEEK_TRAIN: deepseek_cut,
-        DEEPSEEK_TRAIN + " remat off": deepseek_cut}
+        DEEPSEEK_TRAIN + " remat off": deepseek_cut,
+        STABLELM_TRAIN: _cut(stablelm, Stage, stablelm.stages[0].block,
+                             STABLELM_TRAIN_LAYERS)}
+
+
+def _deepseek_cut(get_config, Stage):
+    """deepseek-moe-16b's both stages: the dense layer 0, then its first
+    DEEPSEEK_MOE_LAYERS MoE layers, stacked."""
+    deepseek = get_config(DEEPSEEK)
+    return dataclasses.replace(deepseek, stages=(
+        deepseek.stages[0], Stage(block=deepseek.stages[1].block,
+                                  repeat=DEEPSEEK_MOE_LAYERS)))
 
 
 def _cut(cfg, Stage, block, repeat):
@@ -975,7 +1062,7 @@ def recompute_flops(roofline, cfg, rc, terms) -> dict:
                for c in (cfg, dataclasses.replace(cfg,
                                                   stages=cfg.stages[:1]))]
     moe = cfg.stages[1].block[0].mlp.moe
-    last = DEEPSEEK_TRAIN_MOE_LAYERS * 2 * rows * moe.n_shared \
+    last = DEEPSEEK_MOE_LAYERS * 2 * rows * moe.n_shared \
         * moe.d_expert * cfg.d_model
     forward = prefill[0] - prefill[1]
     if on - off != forward - last:
@@ -1158,9 +1245,10 @@ def phase_train(torch, train, launches, roof, get_config, Stage) -> dict:
     and a bit-exact resume, then 2 steps of the whole model; then
     jamba-1.5-large-398b-reduced with the same kill and resume, and 3 steps
     of full-width Jamba-1.5-Large cut to its first layer; then the same
-    for RWKV6 and MLA, and the two front-end archs. Returns the kernel
-    launches of the kill runs and the full-width runs without checkpoints,
-    summed."""
+    for RWKV6 and MLA, and the two front-end archs; deepseek-moe-16b's cut
+    with and without recompute; stablelm-12b cut to STABLELM_TRAIN_LAYERS
+    layers, 2 steps. Returns the kernel launches of the kill runs and the
+    full-width runs without checkpoints, summed."""
     cfgs = train_configs(get_config, Stage)
     kill_args = TRAIN_ARGS + ["--delta-block", "4096"]
     # the reduced archs' small leaves reach the delta_mask kernel with
@@ -1207,6 +1295,10 @@ def phase_train(torch, train, launches, roof, get_config, Stage) -> dict:
             torch, train, launches, roof, f"train {arch} whole f32", cfgs,
             2, ("flash_attention", "flash_attention_bwd"))[0])
     total.append(phase_train_remat(torch, train, launches, roof, cfgs))
+    # stablelm-12b's 160-wide heads through the f32 forward and backward
+    total.append(train_steps(torch, train, launches, roof, STABLELM_TRAIN,
+                             cfgs, 2, ("flash_attention",
+                                       "flash_attention_bwd"))[0])
     return {k: sum(c[k] for c in total) for k in launches}
 
 
@@ -1241,7 +1333,7 @@ def train_steps(torch, train, launches, roof, label, cfgs, steps,
 
 
 def phase_train_remat(torch, train, launches, roof, cfgs) -> dict:
-    """deepseek-moe-16b cut to its dense layer 0 and DEEPSEEK_TRAIN_MOE_LAYERS
+    """deepseek-moe-16b cut to its dense layer 0 and DEEPSEEK_MOE_LAYERS
     stacked MoE layers (f32, 64 experts top 6 and 2 shared): 2 steps
     without checkpoints with recompute, then 2 without; the losses and the
     parameters' CRC must be bit-equal, since recompute does not change the
@@ -1746,7 +1838,8 @@ def main(argv) -> int:
             "ssm_scan": phase_ssm(torch, ops, ref, rl, ssm),
             "flash_attention_bwd": phase_flash_bwd(torch, ref, rl, flash),
             "ssm_scan_bwd": phase_ssm_bwd(torch, ref, rl, ssm)}
-        for cfg, serve_over, train_over in reference_runs(get_config):
+        for cfg, serve_over, train_over in reference_runs(get_config,
+                                                          Stage):
             phase_reference(torch, Model, RunConfig, cfg, tree_to_torch,
                             serve_over)
             phase_train_reference(torch, Model, RunConfig, cfg,

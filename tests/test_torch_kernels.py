@@ -1228,3 +1228,81 @@ def test_flash_attention_bwd_kernel_mla_shape(cuda):
     assert [tuple(g.shape[-1:]) for g in auto] == [(96,), (96,), (64,)]
     _assert_grads_close([g.cpu() for g in auto], [e.cpu() for e in exp],
                         rel=BWD_TOL)
+
+
+# stablelm-12b's attention: GQA 32 on 8 heads of 160 (5120 / 32), the one
+# head width of the repo's archs that is not 64, 96, 128 or 256. It runs
+# the kernels' run-time-width instantiations: a 256-wide tile with 96
+# zero-filled columns; the f32 forward's Dv in chunks 64 + 64 + 32; the
+# backward's dK/dV products 192 wide.
+STABLELM_SHAPE = (4, 32, 8, 1024, 160)
+
+
+def _stablelm_qkv(device, dtype, seed):
+    b, h, hk, s, d = STABLELM_SHAPE
+    gen = torch.Generator(device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, h, s, d), (b, hk, s, d), (b, hk, s, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_flash_attention_kernel_stablelm_heads(cuda, dtype, tol):
+    """The forward at stablelm-12b's prefill shape against its plain
+    version, and two launches bit-equal."""
+    q, k, v = _stablelm_qkv(cuda, dtype, seed=160)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v)
+    again = ops.flash_attention(q, k, v)
+    exp = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 2
+    assert out.dtype == dtype and out.shape == exp.shape
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_tf32_kernel_lse_stablelm_heads(cuda):
+    """The f32 forward at stablelm-12b's shape with its log-sum-exp kept:
+    the output the same bits as without it, and lse times ln 2 within 1e-5
+    of ``torch.logsumexp`` of the masked, scaled scores."""
+    q, k, v = _stablelm_qkv(cuda, torch.float32, seed=161)
+    b, h, hk, s, d = STABLELM_SHAPE
+    kw = dict(causal=True, window=None, scale=None)
+    out, lse = flash.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    alone = flash.flash_attention_cuda(q, k, v, **kw)
+    x = torch.einsum("bhqd,bhkd->bhqk", q,
+                     k.repeat_interleave(h // hk, dim=1)) / math.sqrt(d)
+    i = torch.arange(s, device=cuda)
+    exp = torch.logsumexp(x.masked_fill(i[None, :] > i[:, None], -math.inf),
+                          dim=-1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, alone)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse * math.log(2), exp, atol=1e-5, rtol=0)
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, k, v),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_stablelm_heads(cuda):
+    """The backward at stablelm-12b's train shape from the forward kernel's
+    output and lse: within BWD_TOL of the plain version, two launches
+    bit-equal, dK and dV summed over each kv head's group of 4."""
+    q, k, v = _stablelm_qkv(cuda, torch.float32, seed=162)
+    dout = torch.randn(q.shape, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(163))
+    kw = dict(causal=True, window=None, scale=None)
+    out, lse = flash.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    got = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    again = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    exp = ref.flash_attention_bwd_ref(q, k, v, out, dout)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _assert_grads_close([g.cpu() for g in got], [e.cpu() for e in exp],
+                        rel=BWD_TOL)
