@@ -22,9 +22,12 @@ Phases, one printed line each; any failure raises and exits non-zero:
              D=128) and at qwen1.5-32b's (bf16, H=Hk=40, D=128) against
              its plain version; two launches bit-equal (f32 and
              bf16); kernel, plain, bound and library
-             (scaled_dot_product_attention) ms, and the kernels' device ms
+             (scaled_dot_product_attention) ms, the kernels' device ms
              alone (torch.profiler; f32: the pre-pass included), apart from
-             the host's work in a single call; each line names the
+             the host's work in a single call, and that host work: the
+             host's µs a call with the card running behind (host_us; at
+             D=160 both dtypes run instantiations of their own); each
+             line names the
              kernel's path, wgmma (bf16) or wgmma-tf32 (f32 as 3xTF32),
              both warpgroup products fed by TMA, the rate its bound
              assumes, and where the kernel computes wider than D and Dv
@@ -312,20 +315,27 @@ DRYRUN_CELLS = [
      "state")]
 
 
-def device_ms(torch, fn, pattern, calls=10) -> float:
+def device_ms(torch, fn, pattern, calls=10, tries=3) -> float:
     """Device ms of one fn() call: the device time of the kernels whose
     names match ``pattern``, summed by torch.profiler over ``calls`` calls
     after a warm-up, divided by ``calls``; the host's work between the
-    launches is not in it."""
+    launches is not in it. A profile that saw none of them (the profiler
+    now and then returns no device events) is taken again, up to
+    ``tries`` times; then it raises, so that no time is made up."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if re.search(pattern, ev.key)) / 1e3 / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if re.search(pattern, ev.key))
+        if total > 0:
+            return total / 1e3 / calls
+    raise RuntimeError(f"device_ms: {tries} profiles of {calls} calls saw "
+                       f"no kernel matching {pattern!r}")
 
 
 def time_ms(torch, fn) -> float:
@@ -440,16 +450,21 @@ def phase_delta(torch, ops, ref, changed_blocks, rl, delta) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def _forward_widths(flash, flops, d, dv, dtype):
-    """(Q K^T depth, P V width, padded flops): the widths the forward
-    kernel computes at, and ``flops`` at those widths. A checkout from
-    before the bf16 kernel's own widths (tools/flash_ab.py runs this phase
-    on others) computes both products at ``head_tile``."""
-    if hasattr(flash, "product_widths"):
-        return (*flash.product_widths(d, dv, dtype),
-                flash.padded_flops(flops, d, dv, dtype=dtype))
-    tile = flash.head_tile(d, dv)
-    return tile, tile, flash.padded_flops(flops, d, dv)
+def host_us(torch, fn, calls=50, blocks=5) -> float:
+    """Host microseconds of fn() with the card running behind it: the
+    median, over ``blocks`` blocks, of the mean of ``calls`` calls back to
+    back, after a warm-up (the host's clock moves with its other load; a
+    block's mean is steadier than one call)."""
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        means.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(means)
 
 
 def phase_flash(torch, ops, ref, rl, flash) -> dict:
@@ -525,7 +540,8 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
             rate += (f" (3xTF32); at the CUDA-core "
                      f"{CUDA_CORE_F32_FLOPS / 1e12:.0f} TFLOP/s "
                      f"{bound(rl, work, CUDA_CORE_F32_FLOPS)[0]:.4f} ms")
-        wd, wdv, padded = _forward_widths(flash, flops, d, dv, dtype)
+        wd, wdv = flash.product_widths(d, dv, dtype)
+        padded = flash.padded_flops(flops, d, dv, dtype=dtype)
         if wd != d or wdv != dv:  # the products run wider than D and Dv
             padded = (padded, nbytes)
             rate += (f"; the kernel computes Q K^T {wd} and P V {wdv} "
@@ -533,12 +549,16 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
                      f"are real, bound at the padded work "
                      f"{bound(rl, padded, peak)[0]:.4f} ms")
         same = torch.equal(out, ops.flash_attention(q, k, v, window=window))
+        host = host_us(torch, lambda: ops.flash_attention(q, k, v,
+                                                          window=window))
         print(f"flash_attention[{label}]: max_abs_err {err:.3e} (tol "
               f"{tol:g}); two launches "
               f"{'bit-equal' if same else 'DIFFER'}; kernel {ms:.4f} ms "
-              f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms {rate} "
-              f"({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+              f"(device {dev_ms:.4f} ms, host {host:.1f} us a call), plain "
+              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms {rate} ({flops / ms / 1e9:.1f} TFLOP/s; "
+              f"device {flops / dev_ms / 1e9:.1f})",
+              flush=True)
         if not ok:
             raise AssertionError(f"flash_attention {label}: max abs err "
                                  f"{err}")
@@ -547,8 +567,9 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
                                  f"differ")
         results[(name, s, window, h, d)] = {
             "label": label, "max_abs_err": err, "ms": ms,
-            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "device_ms": dev_ms, "host_us": host, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
         del q, k, v, ke, ve, out, exp
     # the kernel's entry: gemma3-1b's own case (f32 prefill of a local
     # layer, 22 of its 26), with the worst error of all cases, and every
@@ -557,9 +578,9 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
     del main["label"]
     main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
     main["cases"] = [{key: r[key] for key in (
-        "label", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-        "max_abs_err")} for r in results.values()]
-    del main["device_ms"]
+        "label", "ms", "device_ms", "host_us", "plain_ms", "library_ms",
+        "bound_ms", "max_abs_err")} for r in results.values()]
+    del main["device_ms"], main["host_us"]
     return main
 
 
@@ -634,11 +655,7 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
         label = (f"f32 B={b} H={h} Hk={hk} S={s} D={d}"
                  f"{'' if dv == d else f' Dv={dv}'} window={window} "
                  f"wgmma-tf32")
-        # a checkout from before the wgmma backward (tools/flash_ab.py runs
-        # older ones) computes all five products at head_tile
-        widths = (flash.bwd_product_widths(d, dv)
-                  if hasattr(flash, "bwd_product_widths")
-                  else (flash.head_tile(d, dv),) * 5)
+        widths = flash.bwd_product_widths(d, dv)
         padded = ""
         if sum(widths) != 3 * d + 2 * dv:  # some products run wider
             t_pad = bound(rl, (flash.padded_flops(flops, d, dv,

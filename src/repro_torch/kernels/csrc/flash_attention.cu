@@ -53,11 +53,13 @@
 //     TMA (rows past S are not written), in a tile of its own up to
 //     HD = 128, so that the next item's Q loads meanwhile; at HD = 256 in
 //     its rows of the Q tile;
-//   - HD (the tiles' head width) 64 and 128 take 128-key tiles, 256 takes
-//     64; 197,712 bytes of shared memory at HD = 128 and 256. D = Dv in
-//     {64, 128, 256} and MLA's 96 / 64 have instantiations of their own,
-//     without branches between the products; other widths read D and Dv
-//     at run time.
+//   - HD (the tiles' head width) 64 and 128 take 128-key tiles, 192 and
+//     256 take 64; 197,712 bytes of shared memory at HD = 128, 192 and 256.
+//     D = Dv in {64, 128, 256}, MLA's 96 / 64 and stablelm-12b's 160 have
+//     instantiations of their own, without branches between the products
+//     (at 160: three 64-column atoms, 32 columns of them zero fill, ten
+//     16-deep k-steps, P V as the 128-wide product plus a 32-wide one);
+//     other widths read D and Dv at run time.
 //   Left for later: overlapping a warpgroup's softmax with its own next
 //   Q K^T (two score register sets); a deeper ring, which at HD = 128
 //   needs the shared memory that the output tile takes; issuing an item's
@@ -117,6 +119,15 @@
 //       D = 96, Dv = 64 (minicpm3-4b's MLA): 128 rows, 64 keys, 2 stages,
 //         Q K^T 96 deep and P V 64 wide, not 128: 208 KiB;
 //       D = Dv = 128 (qwen2-vl-2b): 128 rows, 32 keys, 2 stages: 192 KiB;
+//       D = Dv = 160 (stablelm-12b): 128-row items, each consumer all 160
+//         head dims of its 64 rows (80 KiB of Q; twenty k-steps, O as 64 +
+//         64 + 32 columns), a V^T box of 160 rows, 32-key tiles, one
+//         stage: 161 KiB (a second K stage measured 0.7 % faster, inside
+//         the spread between runs; a second V^T stage 2 % slower). 64-row
+//         items whose consumers take 80 head dims each, as at 256, read
+//         twice the K and V^T bytes a row from L2 and measured 1.25x
+//         slower; 64-key
+//         tiles do not fit beside the Q tile (tools/flash_fwd_stages.py);
 //       D = Dv = 256 (gemma3-1b): a 64-row Q tile is 64 KiB and one stage
 //         of 32 keys 128 KiB, so 128-row items do not fit. An item is 64
 //         rows, which both consumers take: consumer c runs Q K^T over head
@@ -138,8 +149,12 @@
 // Both read kv head h / (H / Hk) directly instead of a copy (GQA), take any
 // S (the ragged last tile is masked), Dv != D, and strided q, k, v with a
 // unit last dimension, 16-byte aligned pointers and row strides, which the
-// wrapper checks.
+// wrapper checks. A call's host work is its tensor maps and launches: the
+// SM count and each kernel's shared-memory attribute are set once a process
+// and device, the f32 deal once a shape (device_setup, tf::launch), and the
+// wrapper passes its arguments as one packed block (FwdArgs).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,6 +165,37 @@ namespace {
 
 constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxDevices = 64;
+
+// What a launch asks of the runtime once a process and device, not once a
+// call: the current device, its SM count (read at its first launch), and
+// whether `kernel`'s shared-memory attribute is set there (a bit a device
+// in `set`, one word for each kernel instantiation).
+template <typename Kernel>
+int device_setup(Kernel kernel, size_t smem,
+                 std::atomic<unsigned long long>& set, int& sms) {
+  static std::atomic<int> sm_count[kMaxDevices];  // 0: not read yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  sms = sm_count[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sm_count[dev].store(sms, std::memory_order_relaxed);
+  }
+  const unsigned long long bit = 1ull << dev;
+  if (!(set.load(std::memory_order_acquire) & bit)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    set.fetch_or(bit, std::memory_order_release);
+  }
+  return 0;
+}
 
 struct Params {
   const void* q;
@@ -190,7 +236,7 @@ struct Args {
 
 // HD: the shared tiles' head width (64-column atoms covering D and Dv); BK:
 // keys a tile. Byte offsets from the 1024-aligned base of shared memory.
-// Up to HD = 128 the output is staged in a tile of its own, so that the
+// Up to HD = 192 the output is staged in a tile of its own, so that the
 // next item's Q loads while this item's output is stored; at HD = 256 it
 // is staged in the Q tile.
 template <int HD, int BK>
@@ -198,7 +244,7 @@ struct Smem {
   static constexpr int kAtoms = HD / 64;
   static constexpr int kQAtom = kBQ * 128;
   static constexpr int kKVAtom = BK * 128;
-  static constexpr bool kOwnO = HD <= 128;
+  static constexpr bool kOwnO = HD <= 192;
   static constexpr int kQ = 0;
   static constexpr int kO = kOwnO ? kQ + kAtoms * kQAtom : kQ;
   static constexpr int kK = kO + kAtoms * kQAtom;
@@ -278,20 +324,25 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q,
 }
 
 // O += P V, Dv columns wide: the V stage at v is an N-major B operand;
-// P's keys 16kc..16kc+15 are pa[kc]. At Dv = 128 (kWide) one product
-// spans both atoms of V (LBO: the bytes from one to the next); otherwise
-// each atom is a product of its own.
-template <int kAtoms, int BK, bool kWide>
+// P's keys 16kc..16kc+15 are pa[kc]. At VN = 128 and 160 (kWide) one
+// product spans atoms 0 and 1 of V (LBO: the bytes from one to the next),
+// and at 160 a 32-wide one takes atom 2; otherwise each atom is a product
+// of its own.
+template <int kAtoms, int BK, int VN>
 __device__ __forceinline__ void issue_pv(float (&o)[kAtoms][32],
                                          const uint32_t (&pa)[BK / 16][4],
                                          uint32_t v, int pv_atoms,
                                          int v_last) {
+  constexpr bool kWide = VN == 128 || VN == 160;
 #pragma unroll
   for (int kc = 0; kc < BK / 16; ++kc) {
     if constexpr (kWide) {
-      static_assert(kAtoms == 2, "two atoms of V");
+      static_assert(kAtoms == VN / 64 + (VN % 64 ? 1 : 0), "atoms of V");
       wgmma_rs_tb(reinterpret_cast<float(&)[64]>(o), pa[kc],
                   desc_sw128(v + kc * 16 * 128, BK * 128), 1);
+      if constexpr (VN == 160)
+        pv_atom(o[2], pa[kc], desc_sw128(v + 2 * BK * 128 + kc * 16 * 128),
+                32);
     } else {
 #pragma unroll
       for (int a = 0; a < kAtoms; ++a)
@@ -387,7 +438,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const __grid_constant__ CUtensorMap to, Args p) {
   using L = Smem<HD, BK>;
   constexpr int kAtoms = L::kAtoms;
-  constexpr bool kWidePV = VN == 128 && kAtoms == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -550,7 +600,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
         issue_qk<HD, BK>(sc, q_rows, k_stage(s), ksteps);
         wgmma_commit();
-        issue_pv<kAtoms, BK, kWidePV>(o, p_prev, v_stage(sp), pv_atoms,
+        issue_pv<kAtoms, BK, VN>(o, p_prev, v_stage(sp), pv_atoms,
                                       v_last);
         wgmma_commit();
         turn_end();
@@ -583,7 +633,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int a = 0; a < kAtoms; ++a) fence_regs(o[a]);
         turn_begin();
         wgmma_fence();
-        issue_pv<kAtoms, BK, kWidePV>(o, p_last, v_stage(sl), pv_atoms,
+        issue_pv<kAtoms, BK, VN>(o, p_last, v_stage(sl), pv_atoms,
                                       v_last);
         wgmma_commit();
         if (c == 0) turn_end();
@@ -673,11 +723,11 @@ int launch(const Params& p, int B, cudaStream_t stream) {
     err = make_map(&to, p.o, p.Dv, p.S, p.H, B, 2 * p.o_ss, 2 * p.o_sh,
                    2 * p.o_sb, 64);
   if (err) return err;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  static std::atomic<unsigned long long> attr_set{0};
+  const size_t smem = Smem<HD, BK>::kBytes;
+  int sms = 0;
+  err = device_setup(flash_fwd_wgmma<HD, BK, KS, VN>, smem, attr_set, sms);
+  if (err) return err;
   const int n_qt = (p.S + kBQ - 1) / kBQ;
   const int pairs = B * p.H * ((n_qt + 1) / 2);
   const int per_unit = pairs >= sms ? 2 : 1;
@@ -685,11 +735,6 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   const Args args{B,        p.H,      p.group, p.S,   p.D,   p.Dv,
                   p.scale * 1.4426950408889634f,    p.causal,
                   p.window, units,    per_unit};
-  const size_t smem = Smem<HD, BK>::kBytes;
-  e = cudaFuncSetAttribute(flash_fwd_wgmma<HD, BK, KS, VN>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = units < sms ? units : sms;
   flash_fwd_wgmma<HD, BK, KS, VN>
       <<<blocks, kThreads, smem, stream>>>(tq, tk, tv, to, args);
@@ -699,7 +744,8 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 }  // namespace wg
 
 // bf16 tiles: 99,408 bytes of shared memory at HD = 64 (128-key tiles),
-// 197,712 at 128 (128 keys) and at 256 (64 keys); 384 threads a block.
+// 197,712 at 128 (128 keys), at 192 (64 keys) and at 256 (64 keys); 384
+// threads a block.
 int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   if (p.D % 8 || p.Dv % 8) return static_cast<int>(cudaErrorInvalidValue);
   const int hd = p.D > p.Dv ? p.D : p.Dv;
@@ -715,6 +761,8 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
       return wg::launch<128, 128, 6, 64>(p, B, stream);
     return wg::launch<128, 128>(p, B, stream);
   }
+  if (p.D == 160 && p.Dv == 160)  // stablelm-12b: three atoms, 32 columns pad
+    return wg::launch<192, 64, 10, 160>(p, B, stream);
   if (p.D == 256 && p.Dv == 256)
     return wg::launch<256, 64, 16, 256>(p, B, stream);
   return wg::launch<256, 64>(p, B, stream);
@@ -886,35 +934,41 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2],
 // the A fragment {sc[4j], sc[4j + 2], sc[4j + 1], sc[4j + 3]} split into
 // pb[j], ps[j] (V^T's keys are permuted within each 8 to match); B is the
 // V^T stage's halves (big at vb, small a half further), whose rows v0 + 64
-// m.. are o's chunk m. VN > 0: every chunk 64 wide; VN = 0: nv chunks at
-// run time, the last lw = 16, 32 or 64 wide.
-template <int DV, int BK, int NC, int VN>
-__device__ __forceinline__ void issue_pv(float (&o)[NC][32],
+// m.. are o's chunk m, its accumulators o[32 m..]. VW > 0: the consumer's
+// OW = VW columns fixed, in chunks of 64 and a last one 16, 32 or 64 wide;
+// VW = 0: nv chunks at run time, the last lw = 16, 32 or 64 wide.
+template <int DV, int BK, int OW, int VW>
+__device__ __forceinline__ void issue_pv(float (&o)[OW / 2],
                                          const uint32_t (&pb)[BK / 8][4],
                                          const uint32_t (&ps)[BK / 8][4],
                                          uint32_t vb, int v0, int nv,
                                          int lw) {
   constexpr int kHalf = BK / 32 * DV * 128;
+  constexpr int kChunks = (OW + 63) / 64;
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
     const uint32_t koff = (8 * j / 32) * (DV * 128) + (8 * j % 32) * 4;
 #pragma unroll
-    for (int mc = 0; mc < NC; ++mc) {
+    for (int mc = 0; mc < kChunks; ++mc) {
       const uint32_t off = koff + (v0 + mc * 64) * 128;
       const uint64_t bb = desc_sw128(vb + off);
       const uint64_t bs = desc_sw128(vb + kHalf + off);
-      if constexpr (VN > 0) {
-        wgmma_3xtf32(o[mc], pb[j], ps[j], bb, bs, 1);
-      } else if (mc < nv) {
-        const int w = mc + 1 < nv ? 64 : lw;
+      float* const d = o + 32 * mc;
+      if constexpr (VW > 0 && VW % 64 == 0) {
+        wgmma_3xtf32(*reinterpret_cast<float(*)[32]>(d), pb[j], ps[j], bb,
+                     bs, 1);
+      } else if (VW > 0 || mc < nv) {
+        const int w = VW > 0 ? (mc + 1 < kChunks ? 64 : OW - 64 * mc)
+                             : (mc + 1 < nv ? 64 : lw);
         if (w == 16)
-          wgmma_3xtf32(reinterpret_cast<float(&)[8]>(o[mc]), pb[j], ps[j],
-                       bb, bs, 1);
+          wgmma_3xtf32(*reinterpret_cast<float(*)[8]>(d), pb[j], ps[j], bb,
+                       bs, 1);
         else if (w == 32)
-          wgmma_3xtf32(reinterpret_cast<float(&)[16]>(o[mc]), pb[j], ps[j],
-                       bb, bs, 1);
+          wgmma_3xtf32(*reinterpret_cast<float(*)[16]>(d), pb[j], ps[j], bb,
+                       bs, 1);
         else
-          wgmma_3xtf32(o[mc], pb[j], ps[j], bb, bs, 1);
+          wgmma_3xtf32(*reinterpret_cast<float(*)[32]>(d), pb[j], ps[j], bb,
+                       bs, 1);
       }
     }
   }
@@ -997,11 +1051,17 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap tv, Args p) {
   constexpr bool kHalves = BQ == 64;  // the consumers split the head dims
   constexpr int kWays = kHalves ? 2 : 1;
-  constexpr int NC = (DV + 63) / 64 / kWays;  // 64-column chunks of O
-  constexpr int KMAX = QW / 8 / kWays;        // k-steps of a consumer
+  // O's columns a consumer computes: VW = Dv / kWays where Dv is fixed,
+  // else its share of the tile in 64-column chunks; OW / 2 accumulators a
+  // thread
+  constexpr int VW = VN / kWays;
+  constexpr int OW = VN > 0 ? VW : (DV + 63) / 64 / kWays * 64;
+  constexpr int KMAX = QW / 8 / kWays;  // k-steps of a consumer
   constexpr int KC = KS / kWays;
-  static_assert(VN == 0 || (VN == DV && DV % (64 * kWays) == 0),
-                "P V's widths");
+  static_assert(VN == 0 || (VN == DV && VN % kWays == 0 &&
+                            (VW % 64 == 0 || VW % 64 == 16 ||
+                             VW % 64 == 32)),
+                "P V's widths: chunks of 64, the last 16, 32 or 64 wide");
   static_assert(KS % kWays == 0 && (!kHalves || QW % 16 == 0), "halves");
   using L = Smem<BQ, QW, DV, BK, ST>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1083,7 +1143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int k0 = kHalves ? c * KMAX : 0;
     const int v0 = kHalves ? c * (DV / 2) : 0;
     const int ks = KS > 0 ? KC : min(max((p.D + 7) / 8 - k0, 0), KMAX);
-    const int dv = VN > 0 ? VN / kWays : min(max(p.Dv - v0, 0), 64 * NC);
+    const int dv = VN > 0 ? VW : min(max(p.Dv - v0, 0), OW);
     const int nv = (dv + 63) / 64;  // chunks of O, the last lw wide
     const int last = dv - 64 * (nv - 1);
     const int lw = last <= 16 ? 16 : last <= 32 ? 32 : 64;
@@ -1106,13 +1166,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                (p.window > 0 && qc + 63 - first >= p.window);
       };
 
-      float o[NC][32];
+      float o[OW / 2];
 #pragma unroll
-      for (int a = 0; a < NC; ++a) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
-        fence_regs(o[a]);
-      }
+      for (int i = 0; i < OW / 2; ++i) o[i] = 0.f;
+      fence_regs(o);
       float m[2] = {kNegInf, kNegInf};
       float l[2] = {0.f, 0.f};  // this lane's share; the quad's at the end
       float sc[BK / 2], corr[2];
@@ -1130,9 +1187,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             qrow, warp, lane);
       };
       auto pv = [&](int i) {  // P V of tile i, its P split in pb, ps
-        issue_pv<DV, BK, NC, VN>(o, pb, ps,
-                                 base + L::kV + 2 * stage(i) * L::kVHalf, v0,
-                                 nv, lw);
+        issue_pv<DV, BK, OW, VW>(o, pb, ps,
+                                 base + L::kV + 2 * stage(i) * L::kVHalf,
+                                 v0, nv, lw);
         wgmma_commit();
       };
       auto softmax_of = [&](int i) {  // once Q K^T of tile i is complete
@@ -1165,8 +1222,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           softmax<BK, false>(sc, m, l, corr, p, r0, t * BK, lane);
       };
       auto pv_done = [&](int i) {  // once P V of tile i is complete
-#pragma unroll
-        for (int a = 0; a < NC; ++a) fence_regs(o[a]);
+        fence_regs(o);
         if (lane == 0) mbar_arrive(v_empty(stage(i)));  // done with V^T
       };
       auto rescale_and_split = [&] {  // O by corr; P into pb, ps
@@ -1174,14 +1230,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         // multiply, which would leave every bit as it is
         if (!__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) {
 #pragma unroll
-          for (int a = 0; a < NC; ++a)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              o[a][4 * j] *= corr[0];
-              o[a][4 * j + 1] *= corr[0];
-              o[a][4 * j + 2] *= corr[1];
-              o[a][4 * j + 3] *= corr[1];
-            }
+          for (int j = 0; j < OW / 8; ++j) {
+            o[4 * j] *= corr[0];
+            o[4 * j + 1] *= corr[0];
+            o[4 * j + 2] *= corr[1];
+            o[4 * j + 3] *= corr[1];
+          }
         }
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
@@ -1218,7 +1272,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // normalise, and store this lane's rows as 8-byte pairs (its columns
       // of them where the consumers split O); rows past S and columns past
-      // Dv are not written
+      // the consumer's share of Dv are not written
       float inv[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -1237,18 +1291,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       float* out = p.o + x.b * p.o_sb + x.h * p.o_sh;
 #pragma unroll
-      for (int a = 0; a < NC; ++a)
+      for (int j = 0; j < OW / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = r0 + 8 * r;
-            const int col = v0 + 64 * a + 8 * j + 2 * (lane % 4);
-            if (row < S && col < p.Dv)
-              *reinterpret_cast<float2*>(out + row * p.o_ss + col) =
-                  make_float2(o[a][4 * j + 2 * r] * inv[r],
-                              o[a][4 * j + 2 * r + 1] * inv[r]);
-          }
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          const int col = v0 + 8 * j + 2 * (lane % 4);
+          if (row < S && col < v0 + dv)
+            *reinterpret_cast<float2*>(out + row * p.o_ss + col) =
+                make_float2(o[4 * j + 2 * r] * inv[r],
+                            o[4 * j + 2 * r + 1] * inv[r]);
+        }
     }
   }
 }
@@ -1278,49 +1330,66 @@ int launch(const Params& p, int B, float* kv, float* vt,
     err = make_map(&tv, vt, ld, p.Dv, 2 * Hk, B, 4ll * ld, s_v,
                    2 * Hk * s_v, DV, true);
   if (err) return err;
-  int dev = 0, sms = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  auto kernel = flash_fwd_tf32<BQ, QW, DV, BK, ST, KS, VN>;
+  const size_t smem = Smem<BQ, QW, DV, BK, ST>::kBytes;
+  static std::atomic<unsigned long long> attr_set{0};
+  int sms = 0;
+  err = device_setup(kernel, smem, attr_set, sms);
+  if (err) return err;
   const int n_qt = (p.S + BQ - 1) / BQ;
   const int heads = B * p.H, per_head = (n_qt + 1) / 2;
-  // KV tiles of query tile qt (decode's t_hi - t_lo)
-  auto tiles = [&](int qt) {
-    const int q0 = qt * BQ, q_last = (q0 + BQ < p.S ? q0 + BQ : p.S) - 1;
-    const int kv_hi = p.causal ? q_last + 1 : p.S;
-    const int kv_lo = p.window > 0 && q0 - p.window + 1 > 0
-                          ? q0 - p.window + 1 : 0;
-    return (kv_hi + BK - 1) / BK - kv_lo / BK;
-  };
+  const int pairs = heads * per_head, singles = heads * n_qt;
   // The deal: pairs of a head's heaviest and lightest tiles where there
   // are as many pairs as SMs (flash_fwd_wgmma's rule), single tiles, every
   // head's heaviest first, otherwise; unless the other deal's makespan (the
   // most KV tiles a block takes, blocks taking units in turn) is smaller:
   // gemma3-1b's global layer, 128 pairs, takes pairs (34 tiles against 48;
   // at an equal makespan its window-512 layers measured faster as single
-  // tiles).
-  auto makespan = [&](int per_unit, int units) {
-    const int blocks = units < sms ? units : sms;
-    int most = 0;
-    for (int b = 0; b < blocks; ++b) {
-      int sum = 0;
-      for (int u = b; u < units; u += blocks) {
-        if (per_unit == 1) {
-          sum += tiles(n_qt - 1 - u / heads);
-        } else {
-          const int r = u % per_head;
-          sum += tiles(n_qt - 1 - r) + (r != n_qt - 1 - r ? tiles(r) : 0);
-        }
-      }
-      most = sum > most ? sum : most;
-    }
-    return most;
+  // tiles). The search walks every unit, so each thread keeps the deals
+  // of the last few shapes it launched.
+  struct Deal {
+    int heads, S, causal, window, sms, per_unit;
   };
-  const int pairs = heads * per_head, singles = heads * n_qt;
-  const int by_pairs = makespan(2, pairs), by_singles = makespan(1, singles);
-  const int per_unit = pairs >= sms ? (by_singles < by_pairs ? 1 : 2)
-                                    : (by_pairs < by_singles ? 2 : 1);
+  constexpr int kDeals = 8;
+  thread_local Deal deals[kDeals] = {};  // heads 0: empty
+  thread_local int next_deal = 0;
+  int per_unit = 0;
+  for (const Deal& d : deals)
+    if (d.heads == heads && d.S == p.S && d.causal == p.causal &&
+        d.window == p.window && d.sms == sms)
+      per_unit = d.per_unit;
+  if (per_unit == 0) {
+    // KV tiles of query tile qt (decode's t_hi - t_lo)
+    auto tiles = [&](int qt) {
+      const int q0 = qt * BQ, q_last = (q0 + BQ < p.S ? q0 + BQ : p.S) - 1;
+      const int kv_hi = p.causal ? q_last + 1 : p.S;
+      const int kv_lo = p.window > 0 && q0 - p.window + 1 > 0
+                            ? q0 - p.window + 1 : 0;
+      return (kv_hi + BK - 1) / BK - kv_lo / BK;
+    };
+    auto makespan = [&](int per, int units) {
+      const int blocks = units < sms ? units : sms;
+      int most = 0;
+      for (int b = 0; b < blocks; ++b) {
+        int sum = 0;
+        for (int u = b; u < units; u += blocks) {
+          if (per == 1) {
+            sum += tiles(n_qt - 1 - u / heads);
+          } else {
+            const int r = u % per_head;
+            sum += tiles(n_qt - 1 - r) + (r != n_qt - 1 - r ? tiles(r) : 0);
+          }
+        }
+        most = sum > most ? sum : most;
+      }
+      return most;
+    };
+    const int by_pairs = makespan(2, pairs), by_singles = makespan(1, singles);
+    per_unit = pairs >= sms ? (by_singles < by_pairs ? 1 : 2)
+                            : (by_pairs < by_singles ? 2 : 1);
+    deals[next_deal] = {heads, p.S, p.causal, p.window, sms, per_unit};
+    next_deal = (next_deal + 1) % kDeals;
+  }
   const int units = per_unit == 2 ? pairs : singles;
   const Args args{B,        p.H,      p.group,
                   p.S,      p.D,      p.Dv,
@@ -1329,11 +1398,6 @@ int launch(const Params& p, int B, float* kv, float* vt,
                   per_unit, static_cast<float*>(p.o),
                   p.o_sb,   p.o_sh,   p.o_ss,
                   p.lse};
-  auto kernel = flash_fwd_tf32<BQ, QW, DV, BK, ST, KS, VN>;
-  const size_t smem = Smem<BQ, QW, DV, BK, ST>::kBytes;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = units < sms ? units : sms;
   kernel<<<blocks, kThreads, smem, stream>>>(tq, tk, tv, args);
   return static_cast<int>(cudaGetLastError());
@@ -1360,9 +1424,26 @@ int launch_tf32(const Params& p, int B, float* kv, float* vt,
       return tf::launch<128, 96, 64, 64, 2, 12, 64>(p, B, kv, vt, stream);
     return tf::launch<128, 128, 128, 32, 2>(p, B, kv, vt, stream);
   }
+  if (p.D == 160 && p.Dv == 160)  // stablelm-12b: 80 KiB of Q, one stage
+    return tf::launch<128, 160, 160, 32, 1, 20, 160>(p, B, kv, vt, stream);
   if (p.D == 256 && p.Dv == 256)
     return tf::launch<64, 256, 256, 32, 1, 32, 256>(p, B, kv, vt, stream);
   return tf::launch<64, 256, 256, 32, 1>(p, B, kv, vt, stream);
+}
+
+// The return value of a call whose tensors break the layout rule (not a
+// cudaError_t): the wrapper then names the tensor and the rule.
+constexpr int kBadLayout = -1;
+
+// The rule that TMA and the 16-byte stores set, flash_attention.py's
+// check_tma_layout in one pass over the block: a 16-byte aligned pointer,
+// a last dim of whole 16-byte units (n elements), and batch, head and
+// sequence strides of whole units wherever that dim is longer than 1.
+bool layout_ok(const void* ptr, int cols, long long sb, long long sh,
+               long long ss, int B, int H, int S, int n) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && cols % n == 0 &&
+         (B <= 1 || sb % n == 0) && (H <= 1 || sh % n == 0) &&
+         (S <= 1 || ss % n == 0);
 }
 
 }  // namespace
@@ -1373,37 +1454,60 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The arguments of one forward call, packed by the wrapper into one block
+// (flash_attention.py's _FWD_ARGS, "<4Q12q4Q7ifii": the 8-byte fields,
+// then the 4-byte ones, so no padding), which one ctypes argument passes
+// at a fifth of the host time of thirty.
 // q (B,H,S,D), k (B,Hk,S,D), v (B,Hk,S,Dv), o (B,H,S,Dv), each given by its
 // batch/head/seq strides in elements with a unit last stride; 16-byte
-// aligned pointers, strides and head dims multiples of 16 bytes.
-// dtype: 0 = float32 (flash_fwd_tf32), 1 = bfloat16 (flash_fwd_wgmma).
+// aligned pointers, strides and head dims multiples of 16 bytes, which a
+// call checks before all else (kBadLayout). dtype: 0 = float32 (flash_fwd_tf32), 1 = bfloat16 (flash_fwd_wgmma).
 // window <= 0: no window. lse: null, or (f32 only) a contiguous (B, H, S)
 // float32 output that takes each row's log-sum-exp in the log2 domain,
 // log2 sum_j 2^(s_ij * scale * log2(e)), for the backward. kv, vt (f32
 // only, else ignored): 16-byte aligned float32 scratch that the f32 call's
 // pre-pass fills, (B, Hk, 2, S, D8) and (B, Hk, 2, Dv, ld) with D8 = D
 // rounded up to 8 and ld = S rounded up to 8.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int B, int H, int Hk, int S, int D, int Dv,
-                        long long q_sb, long long q_sh, long long q_ss,
-                        long long k_sb, long long k_sh, long long k_ss,
-                        long long v_sb, long long v_sh, long long v_ss,
-                        long long o_sb, long long o_sh, long long o_ss,
-                        float scale, int causal, int window, void* lse,
-                        void* kv, void* vt, void* stream) {
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+  void* lse;
+  void* kv;
+  void* vt;
+  void* stream;
+  int dtype, B, H, Hk, S, D, Dv;
+  float scale;
+  int causal, window;
+};
+static_assert(sizeof(FwdArgs) == 200, "the wrapper packs 200 bytes");
+
+int flash_attention_fwd(const FwdArgs* a) {
+  const int dtype = a->dtype, B = a->B, H = a->H, Hk = a->Hk, S = a->S;
+  const int D = a->D, Dv = a->Dv;
+  const int n = dtype == 0 ? 4 : 8;  // elements in 16 bytes
+  if (!(layout_ok(a->q, D, a->q_sb, a->q_sh, a->q_ss, B, H, S, n) &&
+        layout_ok(a->k, D, a->k_sb, a->k_sh, a->k_ss, B, Hk, S, n) &&
+        layout_ok(a->v, Dv, a->v_sb, a->v_sh, a->v_ss, B, Hk, S, n) &&
+        layout_ok(a->o, Dv, a->o_sb, a->o_sh, a->o_ss, B, H, S, n)))
+    return kBadLayout;
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if (Hk <= 0 || H % Hk || D <= 0 || D > kMaxD || Dv <= 0 || Dv > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q,    k,    v,    o,    H,    H / Hk, S,    D,    Dv,
-           q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,   v_sb, v_sh, v_ss,
-           o_sb, o_sh, o_ss, scale, causal, window,
-           static_cast<float*>(lse)};
-  if (lse != nullptr && dtype != 0)
+  Params p{a->q,    a->k,    a->v,     a->o,      H,       H / Hk,
+           S,       D,       Dv,       a->q_sb,   a->q_sh, a->q_ss,
+           a->k_sb, a->k_sh, a->k_ss,  a->v_sb,   a->v_sh, a->v_ss,
+           a->o_sb, a->o_sh, a->o_ss,  a->scale,  a->causal,
+           a->window, static_cast<float*>(a->lse)};
+  if (a->lse != nullptr && dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(a->stream);
   if (dtype == 0)
-    return launch_tf32(p, B, static_cast<float*>(kv), static_cast<float*>(vt),
-                       st);
+    return launch_tf32(p, B, static_cast<float*>(a->kv),
+                       static_cast<float*>(a->vt), st);
   if (dtype == 1) return launch_wgmma(p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 
 import torch
 
@@ -33,13 +34,13 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention wants (B, H, S, D) inputs")
     b, h, s, d = q.shape
-    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[2] != s \
-            or k.shape[3] != d:
+    kb, hk, ks, kd = k.shape
+    if v.shape[:3] != (kb, hk, ks) or kb != b or ks != s or kd != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if h % k.shape[1]:
+    if h % hk:
         raise ValueError(f"flash_attention: {h} query heads are not a "
-                         f"multiple of {k.shape[1]} kv heads")
+                         f"multiple of {hk} kv heads")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
@@ -78,10 +79,13 @@ def bwd_work(b, h, hk, s, d, dv, window, itemsize=4, causal=True) -> tuple:
 
 
 def head_tile(d: int, dv: int) -> int:
-    """The head width of the kernels' shared-memory tiles (for bf16, 64-
-    column atoms): max(D, Dv) rounded up to 64, 128 or 256, the zero-filled
-    columns included; each forward kernel has, for each tile, an
-    instantiation that reads D and Dv at run time."""
+    """The head width of the bf16 kernel's shared-memory tiles (64-column
+    atoms): max(D, Dv) rounded up to 64, 128 or 256, the zero-filled
+    columns included; D = Dv = 160 (stablelm-12b) has a 192-wide tile of
+    its own. Each tile of 64, 128 and 256 has an instantiation that reads
+    D and Dv at run time."""
+    if d == dv == 160:
+        return 192
     return next(t for t in (64, 128, 256) if max(d, dv) <= t)
 
 
@@ -122,7 +126,7 @@ def padded_flops(flops: float, d: int, dv: int, backward: bool = False,
 
 
 def layout_error(name: str, t: torch.Tensor):
-    """Why ``t`` breaks the kernels' layout rule (see ``check_mma_layout``),
+    """Why ``t`` breaks the kernels' layout rule (see ``check_tma_layout``),
     or None where it keeps it."""
     n = 16 // t.element_size()
     shape, stride = t.shape, t.stride()
@@ -138,75 +142,96 @@ def layout_error(name: str, t: torch.Tensor):
     return None
 
 
-def check_mma_layout(tensors: dict) -> None:
+def check_tma_layout(tensors: dict) -> None:
     """The kernels move 16-byte rows, most of them through TMA tensor
     maps: each (B, H, S, D) tensor needs a 16-byte aligned data pointer,
     batch, head and sequence strides that are multiples of 16 bytes, and a
     last dim that is a multiple of 16 bytes (8 bfloat16 or 4 float32
     elements). Raises ValueError naming what fails; there is no other path
-    for such an input."""
+    for such an input. The forward's C entry checks the same rule on its
+    argument block and leaves the naming to this function."""
     for name, t in tensors.items():
         err = layout_error(name, t)
         if err is not None:
             raise ValueError(err)
 
 
+# The forward's arguments as ``csrc/flash_attention.cu``'s FwdArgs takes
+# them, one packed block (a ctypes call of thirty arguments takes about
+# five times the host time): q, k, v, o; their batch, head and sequence
+# strides; lse, the f32 scratch kv and vt, the stream; dtype, B, H, Hk, S,
+# D, Dv; scale, causal, window. The C entry checks ``check_tma_layout``'s
+# rule on the block first and returns _BAD_LAYOUT where it fails.
+_FWD_ARGS = struct.Struct("<4Q12q4Q7ifii")
+_BAD_LAYOUT = -1
+
+
+def _fwd_fn():
+    """The C entry point of ``csrc/flash_attention.cu``, its argument type
+    set at the library's first call."""
+    fn = _build.load("flash_attention").flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_char_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window, scale, with_lse=False):
     """Launch the kernel. Inputs may be strided views (for example the
     (B, S, H, D) projections transposed) as long as the last dim is
-    contiguous and the layout passes ``check_mma_layout``. Returns
+    contiguous and the layout passes ``check_tma_layout``. Returns
     (B, H, S, Dv) in ``q.dtype``, laid out in memory as (B, S, H, Dv) so
     that the caller's transpose back is free. With ``with_lse`` (float32
     only) returns ``(out, lse)``: lse (B, H, S) float32 holds each row's
     log-sum-exp of its scaled, masked scores in base 2,
     ``log2 sum_j 2**(s_ij * scale * log2(e))`` (the natural one times
-    log2(e)), which ``flash_attention_bwd_cuda`` takes."""
+    log2(e)), which ``flash_attention_bwd_cuda`` takes. The host work is
+    kept to what a call needs: the launch's checks, one allocation of the
+    output (and for float32 one of the pre-pass's scratch), the stream's
+    raw handle and one ctypes call of one packed argument block, on which
+    the C entry checks the layout rule in one pass."""
     b, h, s, d = q.shape
     hk, dv = k.shape[1], v.shape[-1]
-    if q.dtype not in _DTYPES:
+    dtype = q.dtype
+    code = _DTYPES.get(dtype)
+    if code is None:
         raise ValueError(f"flash_attention on the card takes float32 or "
-                         f"bfloat16, not {q.dtype}")
+                         f"bfloat16, not {dtype}")
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention on the card takes head dims up to "
                          f"{MAX_HEAD_DIM}, got D={d}, Dv={dv}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+    sq, sk, sv = q.stride(), k.stride(), v.stride()
+    if sq[3] != 1 or sk[3] != 1 or sv[3] != 1:
         raise ValueError("flash_attention wants a contiguous last dim")
-    if with_lse and q.dtype != torch.float32:
+    if with_lse and dtype != torch.float32:
         raise ValueError(f"flash_attention keeps its log-sum-exp for the "
-                         f"float32 backward only, not {q.dtype}")
-    out = torch.empty((b, s, h, dv), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    check_mma_layout({"q": q, "k": k, "v": v, "out": out})
-    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:  # the library's first call
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-            + [ctypes.c_longlong] * 12
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 4)
-        fn.restype = ctypes.c_int
+                         f"float32 backward only, not {dtype}")
+    so = (s * h * dv, dv, h * dv, 1)  # (B, S, H, Dv) in memory
+    out = q.new_empty_strided((b, h, s, dv), so)
+    lse = q.new_empty((b, h, s), dtype=torch.float32) if with_lse else None
+    fn = _fwd_fn()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    kv = vt = None
-    if q.dtype == torch.float32:
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    kv = vt = 0
+    if code == 0:
         # the pre-pass's f32 scratch, in one buffer: K's TF32 halves (B, Hk,
         # 2, S, D rounded up to 8), then V^T's (B, Hk, 2, Dv, ld), ld = S
         # rounded up to 8, on a 256-byte line
         n_kv = _up(b * hk * 2 * s * _up(d, 8), 64)
-        scratch = torch.empty(n_kv + b * hk * 2 * dv * _up(s, 8),
-                              dtype=torch.float32, device=q.device)
+        scratch = q.new_empty(n_kv + b * hk * 2 * dv * _up(s, 8))
         kv = scratch.data_ptr()
         vt = kv + 4 * n_kv
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], b, h, hk, s, d, dv, *strides, float(scale),
-             int(causal), int(window or 0),
-             None if lse is None else lse.data_ptr(), kv, vt, stream)
-    _build.check(lib, err, "flash_attention launch")
+    err = fn(_FWD_ARGS.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sq[0],
+        sq[1], sq[2], sk[0], sk[1], sk[2], sv[0], sv[1], sv[2], so[0], so[1],
+        so[2], 0 if lse is None else lse.data_ptr(), kv, vt, stream, code,
+        b, h, hk, s, d, dv, float(scale), int(causal), int(window or 0)))
+    if err:
+        if err == _BAD_LAYOUT:  # name the tensor and the rule it breaks
+            check_tma_layout({"q": q, "k": k, "v": v, "out": out})
+        _build.check(_build.load("flash_attention"), err,
+                     "flash_attention launch")
     _build.LAUNCHES["flash_attention"] += 1
     return (out, lse) if with_lse else out
 
@@ -251,7 +276,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     gradient ``dout`` (both (B, H, S, Dv)). Returns (dq, dk, dv) shaped as
     q, k and v. float32 only; every input but lse may be a strided view
     with a contiguous last dim; q and dout, which the kernel reads by TMA,
-    must pass ``check_mma_layout``. The kernels keep dS (B, H, S, S rounded
+    must pass ``check_tma_layout``. The kernels keep dS (B, H, S, S rounded
     up to 8) in device memory for the dQ pass; where that passes
     ``BWD_DS_BYTES``, the call runs in slabs of batches or kv-head
     groups."""
@@ -282,7 +307,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype} on {lse.device}, want a contiguous "
                          f"{(b, h, s)} float32 tensor on {q.device}")
-    check_mma_layout({"q": q, "dout": dout})
+    check_tma_layout({"q": q, "dout": dout})
     dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     if fn.argtypes is None:  # the library's first call

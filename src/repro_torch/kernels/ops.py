@@ -91,14 +91,14 @@ def _flash_meta(q, k, v, causal, window, backward=False):
 
 
 def _flash_forward(q, k, v, causal, window, scale):
+    if q.is_cuda:  # the card's path first: it is the one that runs hot
+        return _flash.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, scale=scale)
     route = _route(q, "flash_attention")
     if route == "meta":
         return _flash_meta(q, k, v, causal, window)
-    if route == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       scale=scale)
-    return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                       scale=scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
 
 
 class _FlashAttention(torch.autograd.Function):

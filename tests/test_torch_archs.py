@@ -210,11 +210,12 @@ def test_flash_attention_d160_grads_match_jax_vjp(window):
 
 def test_kernel_widths_at_d160():
     """The widths the card's kernels compute D = Dv = 160 at, and so the
-    padded work of chip_smoke's bounds: a 256-wide shared-memory tile (96
-    zero-filled columns); the bf16 forward runs both products 160 wide,
-    the f32 forward D 160 deep and Dv in chunks 64 + 64 + 32; the backward
-    runs S and dP 160 deep, dV^T and dK^T 192 rows, dQ 160 wide."""
-    assert flash.head_tile(160, 160) == 256
+    padded work of chip_smoke's bounds: the bf16 forward's own 192-wide
+    shared-memory tile (32 zero-filled columns), both products 160 wide
+    (ten 16-deep k-steps; P V 128 + 32); the f32 forward D 160 deep and Dv
+    in chunks 64 + 64 + 32; the backward runs S and dP 160 deep, dV^T and
+    dK^T 192 rows, dQ 160 wide."""
+    assert flash.head_tile(160, 160) == 192
     assert flash.product_widths(160, 160, torch.bfloat16) == (160, 160)
     assert flash.product_widths(160, 160, torch.float32) == (160, 160)
     assert flash.bwd_product_widths(160, 160) == (160, 160, 192, 160, 192)

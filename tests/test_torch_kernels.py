@@ -123,9 +123,9 @@ def _bsdh_views(b, s, h, hk, d, dtype):
                                           (256, 4, 1, torch.bfloat16),
                                           (256, 4, 1, torch.float32),
                                           (16, 4, 1, torch.float32)])
-def test_check_mma_layout_takes_model_views(d, h, hk, dtype):
+def test_check_tma_layout_takes_model_views(d, h, hk, dtype):
     q, k, v = _bsdh_views(2, 24, h, hk, d, dtype)
-    flash.check_mma_layout({"q": q, "k": k, "v": v})
+    flash.check_tma_layout({"q": q, "k": k, "v": v})
 
 
 def _misaligned(what, device="cpu", dtype=torch.bfloat16):
@@ -143,9 +143,9 @@ def _misaligned(what, device="cpu", dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("what", ["pointer", "seq_stride", "head_dim"])
-def test_check_mma_layout_raises(what, dtype):
+def test_check_tma_layout_raises(what, dtype):
     with pytest.raises(ValueError, match=str(dtype).split(".")[-1]):
-        flash.check_mma_layout({"k": _misaligned(what, dtype=dtype)})
+        flash.check_tma_layout({"k": _misaligned(what, dtype=dtype)})
 
 
 def _body(src, head):
@@ -250,6 +250,61 @@ def test_flash_attention_cu_bf16_runs_only_on_tensor_cores(dtype):
         assert not re.search(r"\bmma_3xtf32\(", src)
         assert not (_build.CSRC / "tf32_mma.cuh").exists()
     assert "flash_fwd_simt" not in src and "fmaf(" not in src
+
+
+def test_flash_attention_cu_d160_has_its_own_instantiations():
+    """D = Dv = 160 (stablelm-12b) goes, in each dtype, to an instantiation
+    whose k-steps and P V width are template constants, so that no run-time
+    width sits between its products: bf16 a 192-wide tile (three 64-column
+    atoms) of 64-key tiles, ten 16-deep k-steps, P V 160 wide; f32
+    128-row items whose consumers take all 160 head dims of their 64 rows
+    (twenty 8-deep k-steps, O 160 wide), 32-key tiles, one stage. Every
+    other width of each head tile still reaches the instantiation that
+    reads D and Dv at run time, after the branch."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    branch = r"if \(p\.D == 160 && p\.Dv == 160\)[^\n]*\n\s*return "
+    wg = _body(src, "int launch_wgmma(")
+    m = re.search(branch + r"wg::launch<([\d, ]+)>\(", wg)
+    assert m and m.group(1) == "192, 64, 10, 160"
+    assert wg.index(m.group(0)) < wg.index("return wg::launch<256, 64>(")
+    for tile in ("64, 128", "128, 128", "256, 64"):
+        assert f"return wg::launch<{tile}>(p, B, stream);" in wg
+    tf = _body(src, "int launch_tf32(")
+    m = re.search(branch + r"tf::launch<([\d, ]+)>\(", tf)
+    assert m and m.group(1) == "128, 160, 160, 32, 1, 20, 160"
+    assert tf.index(m.group(0)) < tf.index(
+        "return tf::launch<64, 256, 256, 32, 1>(")
+    for tile in ("128, 64, 64, 64, 2", "128, 128, 128, 32, 2",
+                 "64, 256, 256, 32, 1"):
+        assert f"return tf::launch<{tile}>(p, B, kv, vt, stream);" in tf
+    # the bf16 tile of 192 keeps its own output tile (the next Q loads
+    # while the output is stored), and its P V is the 128-wide product
+    # over atoms 0 and 1 plus a 32-wide one on atom 2
+    assert "static constexpr bool kOwnO = HD <= 192;" in src
+    assert "constexpr bool kWide = VN == 128 || VN == 160;" in src
+    assert flash.head_tile(160, 160) == 192
+
+
+def test_flash_attention_fwd_takes_one_block_and_checks_layout_first():
+    """The forward's C entry takes one packed argument block, as many bytes
+    as the wrapper packs, and checks the layout rule before anything else,
+    the empty problem's early return included; the SM count and each
+    kernel's shared-memory attribute are set once a device, not once a
+    call."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    entry = _body(src, "int flash_attention_fwd(const FwdArgs* a) {")
+    assert f"sizeof(FwdArgs) == {flash._FWD_ARGS.size}" in src
+    assert entry.index("return kBadLayout;") \
+        < entry.index("if (B <= 0 || H <= 0 || S <= 0) return 0;")
+    assert entry.count("layout_ok(") == 4  # q, k, v and o
+    assert "constexpr int kBadLayout = -1;" in src \
+        and flash._BAD_LAYOUT == -1
+    for launch in ("int launch(const Params& p, int B, cudaStream_t",
+                   "int launch(const Params& p, int B, float* kv,"):
+        body = _body(src, launch)
+        assert "device_setup(" in body
+        assert "cudaFuncSetAttribute" not in body
+        assert "cudaDeviceGetAttribute" not in body
 
 
 @pytest.mark.parametrize("d,dv,dtype,widths", [
@@ -704,6 +759,10 @@ _MMA_CASES = pytest.mark.parametrize("b,h,hk,s,d,dv,causal,window", [
     (1, 4, 4, 77, 16, 8, True, 5),  # a tile smaller than one of the kernel
     (1, 40, 40, 1024, 96, 64, True, None),  # minicpm3-4b's MLA heads
     (1, 8, 2, 1000, 256, 192, True, 300),  # HD = 256, windowed, ragged
+    (1, 8, 2, 1000, 160, 160, True, None),  # stablelm's D = 160, ragged
+    (2, 4, 4, 1024, 160, 160, True, 512),  # D = 160, window, G = 1
+    (1, 4, 2, 256, 160, 160, False, 64),  # D = 160, non-causal window
+    (1, 4, 1, 300, 200, 200, True, None),  # run-time widths at HD = 256
 ])
 
 
@@ -732,6 +791,8 @@ def test_flash_attention_mma_kernel(cuda, b, h, hk, s, d, dv, causal,
     (4, 64, 8, 1024, 128, 128, None),  # Jamba's prefill
     (4, 40, 40, 1024, 96, 64, None),  # minicpm3-4b's MLA heads
     (1, 8, 2, 1000, 256, 192, 300),  # HD = 256 at run-time widths
+    (1, 8, 2, 1000, 160, 160, 512),  # stablelm's D = 160, ragged, window
+    (1, 4, 1, 300, 200, 200, None),  # run-time widths at HD = 256
 ])
 def test_flash_attention_wgmma_kernel_bit_equal(cuda, b, h, hk, s, d, dv,
                                                 window):
@@ -833,7 +894,9 @@ def test_flash_attention_lse_is_f32_only(cuda):
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("d,h,hk,window", [(128, 64, 8, None),
                                            (256, 4, 1, 512),
-                                           (16, 4, 1, 32)])
+                                           (16, 4, 1, 32),
+                                           (160, 32, 8, None),  # stablelm
+                                           (160, 8, 8, 512)])
 def test_flash_attention_mma_kernel_model_views(cuda, d, h, hk, window,
                                                 dtype, tol):
     q, k, v = (t.to(cuda) for t in _bsdh_views(2, 300, h, hk, d, dtype))
@@ -856,6 +919,21 @@ def test_flash_attention_mma_kernel_rejects(cuda, what, dtype):
     before = ops.LAUNCHES["flash_attention"]
     with pytest.raises(ValueError, match=str(dtype).split(".")[-1]):
         ops.flash_attention(q, bad, q)
+    assert ops.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_rejects_empty_bad_layout(cuda, dtype):
+    """The C entry checks the layout rule before it returns at once on an
+    empty problem, so an S = 0 input with a head dim that breaks the rule
+    raises as it did when the wrapper checked it in Python."""
+    bad = torch.zeros(1, 2, 0, 6 if dtype == torch.float32 else 36,
+                      dtype=dtype, device=cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_attention_cuda(bad, bad, bad, causal=True, window=None,
+                                   scale=None)
     assert ops.LAUNCHES["flash_attention"] == before
 
 
@@ -1231,10 +1309,10 @@ def test_flash_attention_bwd_kernel_mla_shape(cuda):
 
 
 # stablelm-12b's attention: GQA 32 on 8 heads of 160 (5120 / 32), the one
-# head width of the repo's archs that is not 64, 96, 128 or 256. It runs
-# the kernels' run-time-width instantiations: a 256-wide tile with 96
-# zero-filled columns; the f32 forward's Dv in chunks 64 + 64 + 32; the
-# backward's dK/dV products 192 wide.
+# head width of the repo's archs that is not 64, 96, 128 or 256. The
+# forwards run instantiations of their own (bf16: a 192-wide tile, 32
+# zero-filled columns; f32: 128-row items, O as 64 + 64 + 32 columns); the
+# backward runs its run-time widths, its dK/dV products 192 wide.
 STABLELM_SHAPE = (4, 32, 8, 1024, 160)
 
 

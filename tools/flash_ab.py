@@ -2,7 +2,7 @@
 """The flash-attention kernels of checkouts of the PyTorch port,
 alternated on one GPU.
 
-    python3 tools/flash_ab.py OLD_CHECKOUT NEW NEW OLD
+    python3 tools/flash_ab.py [--forward] OLD_CHECKOUT NEW NEW OLD
 
 Runs each named checkout once, in the order given, each in a process of
 its own (a checkout is a directory with ``src/repro_torch``). A run builds
@@ -18,19 +18,22 @@ Kernel, plain and SDPA ms are CUDA-event medians; each forward case also
 carries its kernels' device ms (``torch.profiler``). Prints one JSON line a
 run: the cases, the backward's per-kernel ms at S=1024 for each window,
 the host microseconds a forward call takes to return at gemma3-1b's
-window-512 shape in f32 and bf16, and the ``ptxas`` registers and spills
-of the backward's kernels. The
+window-512 shape and at stablelm-12b's (B=4, H=32, Hk=8, S=1024, D=160)
+in f32 and bf16, that call split into its stages at stablelm's shape
+(``host_split``), the C side's runtime and driver calls timed alone
+(``c_probe``), and the ``ptxas`` registers and spills of the backward's
+kernels. ``--forward`` leaves the backward out. The
 phases take their bounds from the checkout's ``repro_torch.roofline`` rates
 and its kernel module's ``work`` functions, so a checkout must have both.
 """
 from __future__ import annotations
 
+import ctypes
 import inspect
 import json
 import re
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,28 +70,185 @@ def kernel_ms(torch, flash, window, calls=10) -> dict:
     return times
 
 
-def forward_host_us(torch, ops, calls=50) -> dict:
+# (B, H, Hk, S, D, window) of the forward's host-work shapes: gemma3-1b's
+# prefill of a local layer and stablelm-12b's
+HOST_SHAPES = {"gemma_w512": (4, 4, 1, 1024, 256, 512),
+               "stablelm": (4, 32, 8, 1024, 160, None)}
+
+
+def _inputs(torch, shape, dtype):
+    b, h, hk, s, d, _ = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return [torch.randn(t, generator=gen, device="cuda").to(dtype)
+            for t in ((b, h, s, d), (b, hk, s, d), (b, hk, s, d))]
+
+
+def forward_host_us(torch, ops, host_us) -> dict:
     """Host microseconds a call of ops.flash_attention takes to return at
-    gemma3-1b's prefill shape, window 512 (the card runs behind it)."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    each of HOST_SHAPES, f32 and bf16 (the card runs behind it;
+    chip_smoke's ``host_us``)."""
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                   for shape in ((4, 4, 1024, 256), (4, 1, 1024, 256),
-                                 (4, 1, 1024, 256)))
-        ops.flash_attention(q, k, v, window=512)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            ops.flash_attention(q, k, v, window=512)
-        out[str(dtype).split(".")[-1]] = round(
-            (time.perf_counter() - t0) / calls * 1e6, 1)
-        torch.cuda.synchronize()
+    for label, shape in HOST_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _inputs(torch, shape, dtype)
+            out[f"{label} {str(dtype).split('.')[-1]}"] = round(host_us(
+                torch, lambda: ops.flash_attention(q, k, v,
+                                                   window=shape[-1])), 2)
     return out
 
 
-def run_one(checkout: Path) -> dict:
+PROBE = r"""
+#include <chrono>
+#include "hopper.cuh"
+
+struct Args { int a[16]; };  // the size of the kernels' scalar arguments
+
+__global__ void probe_kernel(const __grid_constant__ CUtensorMap a,
+                             const __grid_constant__ CUtensorMap b,
+                             const __grid_constant__ CUtensorMap c,
+                             const __grid_constant__ CUtensorMap d, Args) {}
+
+// Host microseconds of each runtime and driver call that a forward launch
+// makes, or made once a call in older checkouts, each repeated `reps`
+// times over the (B, S, H, D)
+// bf16 tensor at ptr: us[0] one cuTensorMapEncodeTiled (make_map),
+// us[1] cudaGetDevice, us[2] cudaDeviceGetAttribute (the SM count),
+// us[3] cudaFuncSetAttribute (dynamic shared memory), us[4] a launch of
+// 132 blocks of 384 threads with four tensor maps as arguments, and
+// cudaGetLastError.
+extern "C" int host_costs(const void* ptr, int B, int S, int H, int D,
+                          int reps, double* us) {
+  using clk = std::chrono::steady_clock;
+  auto lap = [&](clk::time_point t0) {
+    return std::chrono::duration<double, std::micro>(clk::now() - t0)
+               .count() / reps;
+  };
+  CUtensorMap m;
+  int dev = 0, sms = 0, err = 0;
+  auto t0 = clk::now();
+  for (int i = 0; i < reps; ++i)
+    err |= hopper::make_map(&m, ptr, D, S, H, B, 2ll * H * D, 2ll * D,
+                            2ll * S * H * D, 128);
+  us[0] = lap(t0);
+  t0 = clk::now();
+  for (int i = 0; i < reps; ++i) err |= cudaGetDevice(&dev);
+  us[1] = lap(t0);
+  t0 = clk::now();
+  for (int i = 0; i < reps; ++i)
+    err |= cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  us[2] = lap(t0);
+  t0 = clk::now();
+  for (int i = 0; i < reps; ++i)
+    err |= cudaFuncSetAttribute(
+        probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 197712);
+  us[3] = lap(t0);
+  t0 = clk::now();
+  for (int i = 0; i < reps; ++i) {
+    probe_kernel<<<sms, 384, 197712>>>(m, m, m, m, Args{});
+    err |= cudaGetLastError();
+  }
+  us[4] = lap(t0);
+  return err | cudaDeviceSynchronize();
+}
+"""
+
+
+def c_probe(torch, _build, checkout: Path) -> dict:
+    """The C side's calls timed alone (PROBE, built against the checkout's
+    hopper.cuh), at stablelm-12b's bf16 q."""
+    out = ROOT / "build" / "flash_ab_probe" / checkout.name
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "probe.cu").write_text(PROBE)
+    lib = out / "libprobe.so"
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(checkout / "src/repro_torch/kernels/csrc"), "-o",
+                    str(lib), str(out / "probe.cu")], check=True,
+                   capture_output=True, timeout=300)
+    probe = ctypes.CDLL(str(lib))
+    probe.host_costs.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_double)]
+    b, h, _, s, d, _ = HOST_SHAPES["stablelm"]
+    q = torch.zeros((b, s, h, d), dtype=torch.bfloat16, device="cuda")
+    us = (ctypes.c_double * 5)()
+    probe.host_costs(q.data_ptr(), b, s, h, d, 10, us)  # warm-up
+    err = probe.host_costs(q.data_ptr(), b, s, h, d, 200, us)
+    if err:
+        raise RuntimeError(f"flash_ab: host probe error {err}")
+    return dict(zip(("make_map", "cudaGetDevice", "cudaDeviceGetAttribute",
+                     "cudaFuncSetAttribute", "launch"),
+                    (round(x, 3) for x in us)))
+
+
+def host_split(torch, ops, flash, _build, host_us) -> dict:
+    """Host microseconds of each stage of one ops.flash_attention call at
+    stablelm-12b's shape, f32 and bf16, each stage timed alone
+    (chip_smoke's ``host_us``): the ops layer's placement and argument
+    checks, the output's allocation (as older checkouts' wrappers make it,
+    and as this one does) and the f32 scratch's, the layout
+    check in Python, the stride list, the current stream (as a Stream, and
+    as the raw handle), the ctypes call alone (B = 0: the C entry returns
+    at once) and whole (the C side and the launch), and the whole ops
+    call. A checkout names its layout check ``check_tma_layout`` (older
+    ones ``check_mma_layout``) and passes the C entry one packed block
+    (``_FWD_ARGS``, the packing timed with the call; older ones thirty
+    arguments)."""
+    layout = getattr(flash, "check_tma_layout", None) \
+        or flash.check_mma_layout
+    b, h, hk, s, d, window = HOST_SHAPES["stablelm"]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _inputs(torch, HOST_SHAPES["stablelm"], dtype)
+        dev = q.device
+        o = torch.empty((b, s, h, d), dtype=dtype, device=dev).transpose(1, 2)
+        ops.flash_attention(q, k, v)  # the library's first call
+        fn = _build.load("flash_attention").flash_attention_fwd
+        strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
+        code = 0 if dtype == torch.float32 else 1
+        n_kv = b * hk * 2 * s * d
+        scratch = torch.empty(n_kv + b * hk * 2 * d * s, device=dev)
+        kv, vt = scratch.data_ptr(), scratch.data_ptr() + 4 * n_kv
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        packed = getattr(flash, "_FWD_ARGS", None)
+
+        def launch(batch):
+            if packed is not None:  # one block of arguments
+                return fn(packed.pack(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    *strides, 0, kv, vt, stream, code, batch, h, hk, s, d,
+                    d, d ** -0.5, 1, 0))
+            return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      code, batch, h, hk, s, d, d, *strides, d ** -0.5, 1, 0,
+                      None, kv, vt, stream)
+        stages = {
+            "placements": lambda: ops._placements(
+                "flash_attention", (q, k, v), {0, 1}),
+            "check_args": lambda: flash.check_args(q, k, v),
+            "empty_out": lambda: torch.empty(
+                (b, s, h, d), dtype=dtype, device=dev).transpose(1, 2),
+            "new_empty_strided": lambda: q.new_empty_strided(
+                (b, h, s, d), o.stride()),
+            "layout": lambda: layout({"q": q, "k": k, "v": v, "out": o}),
+            "strides": lambda: [t.stride(i) for t in (q, k, v, o)
+                                for i in range(3)],
+            "current_stream": lambda: torch.cuda.current_stream(
+                dev).cuda_stream,
+            "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(
+                q.get_device()),
+            "ctypes_only": lambda: launch(0),
+            "ctypes_and_c_side": lambda: launch(b),
+            "ops_call": lambda: ops.flash_attention(q, k, v),
+        }
+        if dtype == torch.float32:
+            stages["empty_scratch"] = lambda: torch.empty(
+                n_kv + b * hk * 2 * d * s, device=dev)
+        out[str(dtype).split(".")[-1]] = {
+            name: round(host_us(torch, fn_), 2)
+            for name, fn_ in stages.items()}
+    return out
+
+
+def run_one(checkout: Path, forward_only: bool) -> dict:
     sys.path.insert(0, str(checkout / "src"))
     sys.path.insert(0, str(ROOT))
     import torch
@@ -103,8 +263,12 @@ def run_one(checkout: Path) -> dict:
     _build.build(["flash_attention", "flash_attention_bwd"])
     out = {"forward": chip_smoke.phase_flash(torch, ops, ref, rl,
                                              flash)["cases"],
-           "forward_host_us": forward_host_us(torch, ops)}
-    if "lse" not in inspect.signature(
+           "forward_host_us": forward_host_us(torch, ops,
+                                              chip_smoke.host_us),
+           "forward_host_split": host_split(torch, ops, flash, _build,
+                                            chip_smoke.host_us),
+           "c_side_us": c_probe(torch, _build, checkout)}
+    if forward_only or "lse" not in inspect.signature(
             flash.flash_attention_bwd_cuda).parameters:
         return out
     log = _build.library_path("flash_attention_bwd").with_suffix(".log")
@@ -117,15 +281,19 @@ def run_one(checkout: Path) -> dict:
 
 
 def main(argv) -> int:
+    forward_only = "--forward" in argv
+    argv = [a for a in argv if a != "--forward"]
     if argv[:1] == ["--run"]:
-        print(json.dumps(run_one(Path(argv[1]).resolve())), flush=True)
+        print(json.dumps(run_one(Path(argv[1]).resolve(), forward_only)),
+              flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     for i, name in enumerate(argv):
-        proc = subprocess.run([sys.executable, __file__, "--run", name],
+        proc = subprocess.run([sys.executable, __file__, "--run", name]
+                              + ["--forward"] * forward_only,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])

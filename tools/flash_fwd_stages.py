@@ -9,8 +9,8 @@ text substitution into ``build/flash_fwd_stages/`` (one ``nvcc`` each, all
 at once) and times each at the f32 cases of ``chip_smoke.py``'s flash
 phase (gemma3-1b's prefill, B=4, H=4, Hk=1, S=1024, D=256, window 512 and
 none; minicpm3-4b's MLA heads, D=96, Dv=64, H=Hk=40; musicgen-large's, D=64,
-H=Hk=32, S=1088; qwen2-vl-2b's, D=128, H=12, Hk=2, S=1280), in two rounds.
-Variants, default all:
+H=Hk=32, S=1088; qwen2-vl-2b's, D=128, H=12, Hk=2, S=1280; stablelm-12b's,
+D=160, H=32, Hk=8), in two rounds. Variants, default all:
 
   base         the source as it is
   pv_wait      each tile's P V waited for as soon as it is issued (no
@@ -19,6 +19,11 @@ Variants, default all:
                results are off by ~1e-3
   no_products  every product taken out (the A fragments feeding them stay);
                results are garbage
+  v_late       each tile's V^T waited for after its Q K^T is issued, not
+               before (wgmma_fence again after the wait)
+  d160_halves  D = Dv = 160 as 64-row items whose consumers take 80 head
+               dims each and add their partial scores through shared
+               memory (as at D = 256), one stage, 153 KiB
 
 For each variant and case it prints the device ms of the main kernel and
 of the pre-pass (``torch.profiler``, 10 calls), and for ``base`` also the
@@ -26,8 +31,9 @@ single-call CUDA-event median (as ``chip_smoke.py`` takes it), the mean of
 50 calls queued back to back between two events, and SDPA's single-call
 median. Then the host microseconds a call of ``ops.flash_attention`` takes
 to return at gemma3-1b's shape (window 512), f32 and bf16 (its checks,
-allocations, tensor maps and launches; the card runs behind it), and the
-ptxas lines that say a variant's products are serialized. One JSON line a
+allocations, tensor maps and launches; the card runs behind it), the
+ptxas lines that say a variant's products are serialized, and each
+variant's registers and spills. One JSON line a
 measurement. A substitution names an exact source line, so an edit of the
 kernel may need them updated: the script stops naming the line it no
 longer finds.
@@ -45,6 +51,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 NS = "namespace tf {\n\nusing namespace hopper;\n"
 SKIP = """
@@ -61,13 +68,23 @@ __device__ __forceinline__ void one_3xtf32(float (&d)[N],
   wgmma_tf32(d, a, b, scale_d);
 }
 """
-PV_COMMIT = " " * 33 + "nv, lw);\n        wgmma_commit();\n"
+PV_COMMIT = " " * 33 + "v0, nv, lw);\n        wgmma_commit();\n"
 # (B, H, Hk, S, D, Dv, window) of chip_smoke.py's f32 flash cases
 CASES = {"gemma_w512": (4, 4, 1, 1024, 256, 256, 512),
          "gemma_global": (4, 4, 1, 1024, 256, 256, None),
          "mla": (4, 40, 40, 1024, 96, 64, None),
          "musicgen": (4, 32, 32, 1088, 64, 64, None),
-         "qwen2-vl": (4, 12, 2, 1280, 128, 128, None)}
+         "qwen2-vl": (4, 12, 2, 1280, 128, 128, None),
+         "stablelm": (4, 32, 8, 1024, 160, 160, None)}
+# stablelm-12b's D = Dv = 160: 128-row items, each consumer all 160 head
+# dims of its 64 rows, one stage
+D160 = "tf::launch<128, 160, 160, 32, 1, 20, 160>"
+# a tile's V^T waited for after its Q K^T is issued (a fence after the wait)
+V_WAIT = ("        mbar_wait(v_full(stage(i - 1)), phase(i - 1));\n"
+          "        qk(i);\n")
+V_LATE = ("        qk(i);\n"
+          "        mbar_wait(v_full(stage(i - 1)), phase(i - 1));\n"
+          "        wgmma_fence();\n")
 ROUNDS = 2
 
 
@@ -86,6 +103,9 @@ def variants(src: str) -> dict:
                               PV_COMMIT + "        wgmma_wait<0>();\n"),
         "one_tf32": with_skip.replace("wgmma_3xtf32(", "one_3xtf32("),
         "no_products": with_skip.replace("wgmma_3xtf32(", "skip_3xtf32("),
+        "v_late": substitute(src, V_WAIT, V_LATE),
+        "d160_halves": substitute(
+            src, D160, "tf::launch<64, 160, 160, 32, 1, 20, 160>"),
     }
 
 
@@ -101,11 +121,14 @@ def build(_build, texts: dict) -> tuple:
                str(out / f"lib{name}.so"), str(out / f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
-    libs, serialized = {}, {}
+    import chip_smoke
+    libs, serialized, usage = {}, {}, {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"flash_fwd_stages: nvcc {name}:\n{log}")
+        usage[name] = [u for u in chip_smoke.ptxas_usage(log)
+                       if u.startswith("flash_fwd_tf32")]
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -115,7 +138,7 @@ def build(_build, texts: dict) -> tuple:
             f"{','.join(re.findall(r'-?[0-9]+', m.group(2)))}>"
             for m in re.finditer(r"\((C75(?:1[0-8]|2[0-9]))\)[^']*'[^']*"
                                  r"flash_fwd_tf32I((?:Li-?[0-9]+E)+)E", log)})
-    return libs, serialized
+    return libs, serialized, usage
 
 
 def inputs(torch, case):
@@ -196,8 +219,9 @@ def main(argv) -> int:
     texts = variants((_build.CSRC / "flash_attention.cu").read_text())
     if argv:
         texts = {name: texts[name] for name in argv}
-    libs, serialized = build(_build, texts)
+    libs, serialized, usage = build(_build, texts)
     print(json.dumps({"serialized": serialized}), flush=True)
+    print(json.dumps({"ptxas": usage}), flush=True)
     for rnd in range(ROUNDS):
         for label, case in CASES.items():
             q, k, v, window = inputs(torch, case)

@@ -9,7 +9,8 @@ each the kernel with one part taken out or changed by a text substitution
 (into ``build/flash_stages/``, one ``nvcc`` each, all at once), and times
 each at Jamba's prefill shape (B=4, H=64, Hk=8, S=1024, D=128, causal), a
 non-causal one of 1024 and of 4096 keys, minicpm3-4b's MLA heads (D=96,
-Dv=64, B=4 and B=1) and gemma3-1b's (D=256), beside one
+Dv=64, B=4 and B=1), gemma3-1b's (D=256) and stablelm-12b's (H=32,
+Hk=8, D=160), beside one
 ``scaled_dot_product_attention`` call, in rounds (every variant once,
 then again). Variants, default all:
 
@@ -18,7 +19,7 @@ then again). Variants, default all:
              the epilogue alone
   no_exp     exponentials left out of the softmax (wrong output)
   no_turns   the two consumer warpgroups do not take turns
-  narrow_pv  P V as one product per 64-column atom at Dv = 128
+  narrow_pv  P V as one product per 64-column atom at Dv = 128 and 160
   poly_exp   half the exponentials of the tiles off the band's edges as a
              degree-3 polynomial on the FMA units instead of ex2
   profile    the kernel with clock64() around each stage of a consumer
@@ -55,7 +56,8 @@ SHAPES = [("jamba", (4, 64, 8, 1024, 128, 128), True),
           ("noncausal_1024", (4, 64, 8, 1024, 128, 128), False),
           ("mla", (4, 40, 40, 1024, 96, 64), True),
           ("mla_b1", (1, 40, 40, 1024, 96, 64), True),
-          ("gemma3_bf16", (4, 4, 1, 1024, 256, 256), True)]
+          ("gemma3_bf16", (4, 4, 1, 1024, 256, 256), True),
+          ("stablelm", (4, 32, 8, 1024, 160, 160), True)]
 
 POLY = r"""__device__ __forceinline__ float ex2_poly(float x) {
   x = fmaxf(x, -126.f);
@@ -145,8 +147,8 @@ VARIANTS = {
          "auto turn_begin = [&] {};"),
         ("auto turn_end = [&] { named_arrive(3 + (c ^ 1), 256); };",
          "auto turn_end = [&] {};")],
-    "narrow_pv": [("constexpr bool kWidePV = VN == 128 && kAtoms == 2;",
-                   "constexpr bool kWidePV = false;")],
+    "narrow_pv": [("constexpr bool kWide = VN == 128 || VN == 160;",
+                   "constexpr bool kWide = false;")],
     "poly_exp": [("__device__ __forceinline__ float ex2(float x) {", POLY),
                  (EXP, "sc[4 * j + e] = (!kEdge && (j & 1))"
                        " ? ex2_poly(x * p.scale - mx)"
