@@ -50,13 +50,16 @@ Phases, one printed line each; any failure raises and exits non-zero:
              qwen2-vl-2b's (H=12, Hk=2, S=1280, D=128; a GQA group of 6 in
              its group sum), deepseek-moe-16b's (H=Hk=16, S=1024,
              D=128) and stablelm-12b's (H=32, Hk=8, S=1024, D=160: its
-             dK/dV products run 192 wide), fed the forward kernel's output and
+             own instantiations, dK^T and dV^T as three m64 tiles, so
+             192 rows wide), fed the forward kernel's output and
              log-sum-exp, against its plain version; two launches
              bit-equal; kernel, plain, bound and library (the backward of
-             scaled_dot_product_attention) ms; each line names the path,
-             wgmma-tf32 (3xTF32 warpgroup products on tiles that TMA
-             brings), and where the products run wider than D or Dv, the
-             bound of the padded work
+             scaled_dot_product_attention) ms, the five kernels' device
+             ms alone (torch.profiler) and the host's µs a call
+             (host_us); each line names the path, wgmma-tf32 (3xTF32
+             warpgroup products on tiles that TMA brings), the dK/dV and
+             dQ instantiations that ran, and where the products run
+             wider than D or Dv, the bound of the padded work
   reference  gemma3-1b-reduced, jamba-1.5-large-398b-reduced,
              rwkv6-1.6b-reduced, minicpm3-4b-reduced, qwen2-vl-2b-reduced,
              musicgen-large-reduced, qwen1.5-32b-reduced,
@@ -105,9 +108,12 @@ Phases, one printed line each; any failure raises and exits non-zero:
              ssm_scan, flash_attention and delta_mask launched on that path
   rwkv6      the same serve of full-width rwkv6-1.6b (f32, 24 layers, a
              52 MB session state of shifts and wkv states): delta_mask
-  minicpm3   the same serve of full-width minicpm3-4b (f32, 62 MLA
-             layers, a compressed 302 MB cache): delta_mask and
-             flash_attention (D=96, Dv=64) launched on that path
+  minicpm3   the same serve of full-width minicpm3-4b cut to its first
+             16 of 62 MLA layers (f32, a compressed 78 MB cache):
+             delta_mask and flash_attention (D=96, Dv=64) launched on that
+             path; then the whole 62 layers once without snapshots (a
+             302 MB cache): prefill and 32 decode steps, tokens in range
+             and logits finite
   qwen2-vl   the same serve of full-width qwen2-vl-2b cut to its first 14
              of 28 layers (f32, GQA 12 on 2 heads): 256 stub patch
              embeddings prefilled before each 1024-token prompt, decode
@@ -124,10 +130,11 @@ Phases, one printed line each; any failure raises and exits non-zero:
              128, 64 routed experts top 6 and 2 shared; 2.85e9 parameters,
              a 0.17 GB KV cache): delta_mask and flash_attention launched
              on that path
-  stablelm   the same serve of the whole stablelm-12b in bf16 (40 layers,
-             GQA 32 on 8 heads of 160, layernorm: 12.1e9 parameters, a
-             0.87 GB KV cache): delta_mask and flash_attention (D=160)
-             launched on that path
+  stablelm   the same serve of stablelm-12b in bf16 cut to its first 10
+             of 40 layers (GQA 32 on 8 heads of 160, layernorm, a 0.22 GB
+             KV cache): delta_mask and flash_attention (D=160) launched on
+             that path; then the whole 40 layers once without snapshots
+             (12.1e9 parameters, a 0.87 GB KV cache)
   phi3.5     phi3.5-moe-42b-a6.6b cut to its first 12 of 32 layers (bf16,
              GQA 32 on 8 heads of 128, 16 experts top 2 in every layer:
              15.9e9 parameters; the whole model is 83.7 GB) and
@@ -199,12 +206,12 @@ and without recompute); R is repro_torch.roofline's (the model FLOPs, 6 or
 S is model over counted FLOPs. Then one JSON line {"roofline": [...]}, an
 entry for each of those steps; one JSON line {"dryrun": [...]}, the five
 cells' counted terms; one JSON line with every kernel's numbers
-(launches summed over the main-path runs: the nine serve runs with a node
-kill and the three served once (the whole musicgen-large, phi3.5-moe's 12
-layers, qwen1.5-32b's 32), the moe_knobs runs, the
-quickstart and the two example runs with a kill, the six train runs with a
-node kill, and the Jamba L0, gemma3-1b 26-layer, rwkv6-1.6b, minicpm3
-8-layer, qwen2-vl-2b, musicgen-large, both deepseek-moe-16b and the
+(launches summed over the main-path runs: the eight serve runs with a
+node kill and the five served once (the whole minicpm3-4b, musicgen-large
+and stablelm-12b, phi3.5-moe's 12 layers, qwen1.5-32b's 32), the moe_knobs
+runs, the quickstart and the two example runs with a kill, the six train
+runs with a node kill, and the Jamba L0, gemma3-1b 26-layer, rwkv6-1.6b,
+minicpm3 8-layer, qwen2-vl-2b, musicgen-large, both deepseek-moe-16b and the
 stablelm-12b 4-layer train runs,
 and the mesh phase's runs (serve and head_pad, and the mesh train step);
 flash_attention's entry is gemma3-1b's f32 case, flash_attention_bwd's its
@@ -245,6 +252,10 @@ KILL_ARGS = ["--steps", "8", "--ckpt-every", "3", "--inject-failure", "7"]
 JAMBA_TRAIN_STEPS = 3  # the full-width L0 cut, without checkpoints
 RWKV_ARGS = ["--arch", "rwkv6-1.6b"] + SERVE_ARGS[2:]
 MINICPM_ARGS = ["--arch", "minicpm3-4b"] + SERVE_ARGS[2:]
+# of 62 for the runs with snapshots: the whole model's three runs took
+# 104 s on an H100 80GB HBM3 at 700 W (decode is host-bound, 180 ms a
+# step); the whole model serves once without snapshots
+MINICPM_SERVE_LAYERS = 16
 # of 62: the whole model's 66 GB train state leaves no room for activations
 MINICPM_TRAIN_LAYERS = 8
 QWEN_VL_ARGS = ["--arch", "qwen2-vl-2b"] + SERVE_ARGS[2:]
@@ -276,6 +287,11 @@ STABLELM_ARGS = ["--arch", STABLELM] + SERVE_ARGS[2:] + ["--dtype",
 # of 40: 2.14e9 parameters, a 34.2 GB f32 train state (the whole model's
 # would be 194 GB)
 STABLELM_TRAIN_LAYERS = 4
+# of 40 for the runs with snapshots: the whole model's three runs took
+# 217 s on an H100 80GB HBM3 at 700 W, and with them the script ran past
+# its 1200 s limit on a slower host; the whole model serves once without
+# snapshots
+STABLELM_SERVE_LAYERS = 10
 STABLELM_TRAIN = f"train {STABLELM} {STABLELM_TRAIN_LAYERS} layers f32"
 PHI = "phi3.5-moe-42b-a6.6b"  # 32 layers, each 16 experts top 2
 PHI_ARGS = ["--arch", PHI] + SERVE_ARGS[2:] + ["--dtype", "bfloat16"]
@@ -315,12 +331,13 @@ DRYRUN_CELLS = [
      "state")]
 
 
-def device_ms(torch, fn, pattern, calls=10, tries=3) -> float:
-    """Device ms of one fn() call: the device time of the kernels whose
-    names match ``pattern``, summed by torch.profiler over ``calls`` calls
-    after a warm-up, divided by ``calls``; the host's work between the
-    launches is not in it. A profile that saw none of them (the profiler
-    now and then returns no device events) is taken again, up to
+def kernel_device_ms(torch, fn, pattern, calls=10, tries=3) -> dict:
+    """Device ms of each kernel of one fn() call whose name matches
+    ``pattern``, by the name and template arguments torch.profiler gives
+    it ('flash_bwd_dq<160, 4, 160>'): its device time summed over ``calls``
+    calls after a warm-up, divided by ``calls``; the host's work between
+    the launches is not in it. A profile that saw none of them (the
+    profiler now and then returns no device events) is taken again, up to
     ``tries`` times; then it raises, so that no time is made up."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -330,12 +347,21 @@ def device_ms(torch, fn, pattern, calls=10, tries=3) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                    if re.search(pattern, ev.key))
-        if total > 0:
-            return total / 1e3 / calls
+        times = {}
+        for ev in prof.key_averages():
+            m = re.search(pattern + r"\w*(?:<[^<>]*>)?", ev.key)
+            if m and ev.self_device_time_total > 0:
+                times[m.group()] = times.get(m.group(), 0.0) \
+                    + ev.self_device_time_total / 1e3 / calls
+        if times:
+            return times
     raise RuntimeError(f"device_ms: {tries} profiles of {calls} calls saw "
                        f"no kernel matching {pattern!r}")
+
+
+def device_ms(torch, fn, pattern, calls=10, tries=3) -> float:
+    """Device ms of one fn() call: kernel_device_ms summed."""
+    return sum(kernel_device_ms(torch, fn, pattern, calls, tries).values())
 
 
 def time_ms(torch, fn) -> float:
@@ -590,9 +616,12 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
     MLA heads (D = 96, Dv = 64, H = Hk = 40), musicgen-large's (MHA, D = 64,
     S = 64 + 1024), qwen2-vl-2b's (a GQA group of 6, D = 128, S = 256 +
     1024), deepseek-moe-16b's (MHA, D = 128) and stablelm-12b's (GQA 4,
-    D = 160, whose dK/dV products run 192 wide). Its bound counts the five
-    products (Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over the pairs the band
-    holds."""
+    D = 160, on instantiations of its own: 160-wide tiles of 32 keys, dK^T
+    and dV^T as three m64 tiles, 192 rows of which 160 real). Each line
+    names the dK/dV and dQ instantiations the profiler saw and gives the
+    five kernels' device ms alone beside the single call, and the host's µs
+    a call with the card running behind. Its bound counts the five products
+    (Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over the pairs the band holds."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gemma, mla = (4, 4, 1, 256, 256), (4, 40, 40, 96, 64)
@@ -637,6 +666,12 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
             ok &= x.shape == e.shape and bool(torch.isfinite(x).all()) \
                 and e_x <= BWD_TOL * scale
         ms = time_ms(torch, kernel)
+        per_kernel = kernel_device_ms(torch, kernel, r"flash_bwd_")
+        dev_ms = sum(per_kernel.values())
+        inst = " ".join(sorted(name[len("flash_bwd_"):].replace(" ", "")
+                               for name in per_kernel
+                               if re.match(r"flash_bwd_(dkdv|dq)<", name)))
+        host = host_us(torch, kernel)
         plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
             q, k, v, out, dout, window=window))
         qr, kr, vr = (t.repeat_interleave(h // t.shape[1], dim=1).detach()
@@ -654,7 +689,7 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
         bound_ms, bound_by = bound(rl, work, peak)
         label = (f"f32 B={b} H={h} Hk={hk} S={s} D={d}"
                  f"{'' if dv == d else f' Dv={dv}'} window={window} "
-                 f"wgmma-tf32")
+                 f"wgmma-tf32 {inst}")
         widths = flash.bwd_product_widths(d, dv)
         padded = ""
         if sum(widths) != 3 * d + 2 * dv:  # some products run wider
@@ -667,7 +702,8 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
                       f"real), bound at the padded work {t_pad:.4f} ms")
         print(f"flash_attention_bwd[{label}]: max_abs_err {err:.3e} (tol "
               f"{BWD_TOL:g} of each gradient's max); two launches bit-equal; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, host {host:.1f} "
+              f"us a call), plain {plain_ms:.4f} ms, sdpa backward "
               f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms at "
               f"{peak / 1e12:.1f} TFLOP/s (3xTF32), "
               f"{bound(rl, work, CUDA_CORE_F32_FLOPS)[0]:.4f} ms at the "
@@ -679,16 +715,20 @@ def phase_flash_bwd(torch, ref, rl, flash) -> dict:
                                  f"{err}")
         results[(s, window, h, d)] = {
             "label": label, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "device_ms": dev_ms, "host_us": host,
+            "kernel_device_ms": per_kernel, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
         del q, k, v, dout, out, lse, got, again, exp, qr, kr, vr, o_lib
         torch.cuda.empty_cache()
     main = dict(results[(1024, 512, 4, 256)])  # gemma's local layers
-    del main["label"]
     main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
     main["cases"] = [{key: r[key] for key in (
-        "label", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+        "label", "ms", "device_ms", "host_us", "kernel_device_ms",
+        "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         for r in results.values()]
+    for key in ("label", "device_ms", "host_us", "kernel_device_ms"):
+        del main[key]
     return main
 
 
@@ -945,6 +985,7 @@ def serve_runs(get_config, Stage) -> list:
     musicgen = get_config("musicgen-large")
     phi, qwen = get_config(PHI), get_config(QWEN)
     qwen_vl = get_config("qwen2-vl-2b")
+    minicpm, stablelm = get_config("minicpm3-4b"), get_config(STABLELM)
     return [
         ("serve gemma3-1b f32", SERVE_ARGS, ("delta_mask", "flash_attention"),
          get_config("gemma3-1b"), False),
@@ -953,8 +994,12 @@ def serve_runs(get_config, Stage) -> list:
          _cut(jamba, Stage, jamba.stages[0].block[:JAMBA_LAYERS], 1), False),
         ("serve rwkv6-1.6b f32", RWKV_ARGS, ("delta_mask",),
          get_config("rwkv6-1.6b"), False),
-        ("serve minicpm3-4b f32", MINICPM_ARGS,
-         ("delta_mask", "flash_attention"), get_config("minicpm3-4b"), False),
+        (f"serve minicpm3-4b {MINICPM_SERVE_LAYERS} layers f32", MINICPM_ARGS,
+         ("delta_mask", "flash_attention"),
+         _cut(minicpm, Stage, minicpm.stages[0].block, MINICPM_SERVE_LAYERS),
+         False),
+        ("serve minicpm3-4b 62 layers f32", MINICPM_ARGS,
+         ("flash_attention",), minicpm, True),
         (f"serve qwen2-vl-2b {QWEN_VL_SERVE_LAYERS} layers f32", QWEN_VL_ARGS,
          ("delta_mask", "flash_attention"),
          _cut(qwen_vl, Stage, qwen_vl.stages[0].block, QWEN_VL_SERVE_LAYERS),
@@ -968,8 +1013,12 @@ def serve_runs(get_config, Stage) -> list:
         (f"serve {DEEPSEEK} {1 + DEEPSEEK_MOE_LAYERS} layers bf16",
          DEEPSEEK_ARGS, ("delta_mask", "flash_attention"),
          _deepseek_cut(get_config, Stage), False),
-        (f"serve {STABLELM} bf16", STABLELM_ARGS,
-         ("delta_mask", "flash_attention"), get_config(STABLELM), False),
+        (f"serve {STABLELM} {STABLELM_SERVE_LAYERS} layers bf16",
+         STABLELM_ARGS, ("delta_mask", "flash_attention"),
+         _cut(stablelm, Stage, stablelm.stages[0].block,
+              STABLELM_SERVE_LAYERS), False),
+        (f"serve {STABLELM} 40 layers bf16", STABLELM_ARGS,
+         ("flash_attention",), stablelm, True),
         (f"serve {PHI} {PHI_SERVE_LAYERS} layers bf16", PHI_ARGS,
          ("flash_attention",),
          _cut(phi, Stage, phi.stages[0].block, PHI_SERVE_LAYERS), True),
@@ -1855,6 +1904,11 @@ def main(argv) -> int:
             "ssm_scan": phase_ssm(torch, ops, ref, rl, ssm),
             "flash_attention_bwd": phase_flash_bwd(torch, ref, rl, flash),
             "ssm_scan_bwd": phase_ssm_bwd(torch, ref, rl, ssm)}
+        for case in kernels["flash_attention_bwd"]["cases"]:
+            # stablelm-12b's heads run instantiations of their own widths
+            label = case["label"]
+            if " D=160 " in label and "dkdv<160," not in label:
+                raise AssertionError(f"flash_attention_bwd: {label}")
         for cfg, serve_over, train_over in reference_runs(get_config,
                                                           Stage):
             phase_reference(torch, Model, RunConfig, cfg, tree_to_torch,

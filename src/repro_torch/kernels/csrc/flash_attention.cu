@@ -154,7 +154,6 @@
 // and device, the f32 deal once a shape (device_setup, tf::launch), and the
 // wrapper passes its arguments as one packed block (FwdArgs).
 
-#include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,38 +164,6 @@ namespace {
 
 constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxDevices = 64;
-
-// What a launch asks of the runtime once a process and device, not once a
-// call: the current device, its SM count (read at its first launch), and
-// whether `kernel`'s shared-memory attribute is set there (a bit a device
-// in `set`, one word for each kernel instantiation).
-template <typename Kernel>
-int device_setup(Kernel kernel, size_t smem,
-                 std::atomic<unsigned long long>& set, int& sms) {
-  static std::atomic<int> sm_count[kMaxDevices];  // 0: not read yet
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 0 || dev >= kMaxDevices)
-    return static_cast<int>(cudaErrorInvalidDevice);
-  sms = sm_count[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    sm_count[dev].store(sms, std::memory_order_relaxed);
-  }
-  const unsigned long long bit = 1ull << dev;
-  if (!(set.load(std::memory_order_acquire) & bit)) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    set.fetch_or(bit, std::memory_order_release);
-  }
-  return 0;
-}
-
 struct Params {
   const void* q;
   const void* k;
@@ -1435,16 +1402,7 @@ int launch_tf32(const Params& p, int B, float* kv, float* vt,
 // cudaError_t): the wrapper then names the tensor and the rule.
 constexpr int kBadLayout = -1;
 
-// The rule that TMA and the 16-byte stores set, flash_attention.py's
-// check_tma_layout in one pass over the block: a 16-byte aligned pointer,
-// a last dim of whole 16-byte units (n elements), and batch, head and
-// sequence strides of whole units wherever that dim is longer than 1.
-bool layout_ok(const void* ptr, int cols, long long sb, long long sh,
-               long long ss, int B, int H, int S, int n) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && cols % n == 0 &&
-         (B <= 1 || sb % n == 0) && (H <= 1 || sh % n == 0) &&
-         (S <= 1 || ss % n == 0);
-}
+using hopper::layout_ok;
 
 }  // namespace
 

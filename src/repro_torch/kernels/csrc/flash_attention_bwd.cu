@@ -46,8 +46,8 @@
 //   3. flash_bwd_dkdv: blocks of 384 threads over work items (b, query
 //      head, key tile of BK keys), the longest walks of the causal band
 //      first: up to HD = 128 persistent, a block an SM taking items in
-//      turn; at HD = 256 a block an item, which the card deals to SMs as
-//      they free up (its items are few and unequal, and a static deal
+//      turn; at HD = 160 and 256 a block an item, which the card deals to
+//      SMs as they free up (its items are unequal, and a static deal
 //      measured slower). The first thread of the producer warpgroup loads
 //      an item's K and V halves by TMA (kv_full; kv_empty once the item's
 //      last S and dP have read them), then streams the 64-row query tiles
@@ -69,9 +69,10 @@
 //      dS read); warpgroup 0 frees Q's atoms and warpgroup 1 dO's once
 //      their fragments are in registers. setmaxnreg gives the producer 24
 //      registers and the consumers 240. dK^T and dV^T stay in registers
-//      (D / 64 and Dv / 64 m64nBK accumulators) and are written at the end
-//      of each item: G = 1 into dk and dv (dK times scale), G > 1 as
-//      per-query-head partials (B, H, S, D) and (B, H, S, Dv).
+//      (D and Dv over 64, rounded up, m64nBK accumulators: m_tiles) and
+//      are written at the end of each item: G = 1 into dk and dv (dK
+//      times scale), G > 1 as per-query-head partials (B, H, S, D) and
+//      (B, H, S, Dv).
 //   4. flash_bwd_dkdv_sum (G > 1 only), one block per (b, kv head, key):
 //      the group's G partials in head order, dK times scale. Bytes.
 //   5. flash_bwd_dq: dQ = dS K scale, a product over the band's keys, one
@@ -81,8 +82,8 @@
 //      ST stages; each consumer warpgroup takes 64 rows, loads dS as its A
 //      fragments (zero outside the band, so dS entries that step 3 did not
 //      write are never read) and runs dQ in 64-wide n-tiles (the last 32
-//      wide where D rounded up to 32 is not a multiple of 64), D/64
-//      m64n64 accumulators a thread; the fragments of the next chunk load
+//      wide where D rounded up to 32 is not a multiple of 64), one
+//      m64n64 accumulator a thread for each; the fragments of the next chunk load
 //      while the last chunk's products run, in two register sets named at
 //      compile time (the loop is unrolled by two).
 // Tiles, widths and budgets (f32 tiles in 32-column atoms as TMA writes
@@ -92,12 +93,19 @@
 //   HD = max(D, Dv) <= 64:  BK = 64, ST = 2: 192 KiB; dQ ring of 4 stages
 //     of 32 KiB;
 //   HD <= 128: BK = 32, ST = 2: 224 KiB; dQ 4 stages of 48 KiB;
-//   HD <= 256: BK = 16, ST = 1: 208 KiB (one Q and dO stage: 128 KiB of
-//     the 227); dQ 2 stages of 80 KiB.
-// Registers of a consumer thread: BK / 2 for S or dP, (D / 64) BK / 2 for
-// dK^T (HD = 256: 32), 64 for two sets of A fragments; dQ: 128 at D = 256.
-// ptxas reports every instantiation at the 168 registers it launches
-// with and no spills; none of the main widths' products is serialized.
+//   D = Dv = 160 (stablelm-12b): HD = 160, five atoms, BK = 32, ST = 1:
+//     192 KiB (80 of K and V halves, 80 of Q and dO, 32 of P^T and dS^T),
+//     so that S and dP run m64n32k8 as at 128; dK^T and dV^T in three m64
+//     tiles, the last with 32 real rows; dQ 4 stages of 56 KiB, its
+//     n-tiles 64, 64 and 32 wide (192-wide tiles, 16-key tiles with two
+//     stages, persistent blocks and 3 dQ stages measured slower);
+//   other HD <= 256: BK = 16, ST = 1: 208 KiB (one Q and dO stage: 128 KiB
+//     of the 227); dQ 2 stages of 80 KiB.
+// Registers of a consumer thread: BK / 2 for S or dP, ((D + 63) / 64) BK /
+// 2 for dK^T (HD = 256: 32), 64 for two sets of A fragments; dQ: 128 at D
+// = 256. ptxas reports every instantiation at the 168 registers it
+// launches with and no spills; none of the compile-time widths' products
+// is serialized or has a warpgroup.arrive injected (pin).
 // The products run at these widths: S D deep and dP Dv deep rounded up to
 // the k-step of 8, dK^T and dV^T D and Dv rows rounded up to 64, dQ D
 // wide rounded up to 32 (flash_attention.bwd_product_widths).
@@ -109,11 +117,13 @@
 // 16-byte aligned pointers and batch, head and sequence strides (the
 // wrapper checks, and ops copies a dout that breaks the rule).
 // What bounds it (tools/flash_bwd_stages.py: variant builds of this file
-// timed on the H100 at gemma3-1b's shapes): not the streaming of Q and dO
-// from L2 (taking it out saves 1-3 % of step 3); taking out the products
-// and the A fragments that feed them saves 42 %. At HD = 256 the key tile
-// is 16 keys, so every product of step 3 is m64n16k8; the rest of the
-// time is the warpgroups' handoffs, the P and dS passes and tile waits.
+// timed on the H100 at gemma3-1b's and stablelm-12b's shapes): not the
+// streaming of Q and dO from L2 (taking it out saves 1-4 % of step 3);
+// taking out the products and the A fragments that feed them saves 42 %
+// at HD = 256 and 28 % at D = 160. At HD = 256 the key tile is 16 keys,
+// so every product of step 3 is m64n16k8; the rest of the time is the
+// warpgroups' handoffs, the P and dS passes (dS written to device memory:
+// 512 MiB a call at stablelm-12b's shape) and tile waits.
 // Left for later: a wider key tile at HD = 256 (the shared memory holds
 // one Q and dO stage beside 16 keys of K and V halves); overlapping the
 // two warpgroups' softmax and dS passes with the other's products (they
@@ -208,6 +218,15 @@ __device__ __forceinline__ void sts(unsigned char* sm, uint32_t off,
   *reinterpret_cast<uint32_t*>(sm + off) = x;
 }
 
+// The halves of an A fragment's split, pinned where they are made: a split
+// that the compiler sinks under the wgmma_fence that follows it makes
+// ptxas inject a warpgroup.arrive before the product that reads it (C7519)
+__device__ __forceinline__ void pin(uint32_t (&big)[4],
+                                    uint32_t (&small)[4]) {
+  fence_regs(big);
+  fence_regs(small);
+}
+
 // delta = rowsum(dO o O), one warp a row, lanes over the columns in a
 // fixed order and a butterfly sum.
 __global__ void __launch_bounds__(256) flash_bwd_delta(Params p) {
@@ -278,6 +297,12 @@ __global__ void __launch_bounds__(256) flash_bwd_dkdv_sum(Params p) {
 namespace dkdv {
 
 constexpr int kBQ = 64;  // query rows a step
+// m64 tiles of dK^T or dV^T rows in a head tile hd wide (hd = 160: three,
+// the last with 32 real rows)
+__host__ __device__ constexpr int m_tiles(int hd) { return (hd + 63) / 64; }
+// Up to HD = 128 a block an SM takes items in turn (persistent); wider, a
+// block an item, which the card deals to SMs as they free up (see launch)
+__host__ __device__ constexpr bool persistent(int hd) { return hd <= 128; }
 // named barriers between the consumers (256 threads)
 enum { kPWritten = 1, kDsWritten, kPRead, kDsRead };
 
@@ -343,6 +368,7 @@ __device__ __forceinline__ void product_nt(float (&c)[BK / 2],
         const float2 hi = lds2(sm, x + tile_at<kBQ>(r0 + 8, c0));
         const float xv[4] = {lo.x, hi.x, lo.y, hi.y};
         split4(xv, ab[j], as[j]);
+        pin(ab[j], as[j]);
       }
     }
     wgmma_fence();
@@ -362,7 +388,7 @@ __device__ __forceinline__ void product_nt(float (&c)[BK / 2],
 }
 
 // c[m] += X^T G^T for the m-tiles m < mt (MT: their count, 0 = mt at run
-// time, up to HD / 64): X^T's rows are X's columns 64 m.. (zero past the
+// time, up to m_tiles(HD)): X^T's rows are X's columns 64 m.. (zero past the
 // loaded columns), its k the tile's 64 queries, read down X; row g of a
 // warp's 16 is column 2 g of its 16, row g + 8 column 2 g + 1, so that a
 // lane's two rows are one 8-byte load (the epilogue maps them back); G the
@@ -372,13 +398,13 @@ __device__ __forceinline__ void product_nt(float (&c)[BK / 2],
 // m-tile are in registers, its two atoms of X are free (arrivals on empty
 // + 8 atom).
 template <int HD, int BK, int MT>
-__device__ __forceinline__ void product_tn(float (&c)[HD / 64][BK / 2],
+__device__ __forceinline__ void product_tn(float (&c)[m_tiles(HD)][BK / 2],
                                            const unsigned char* sm,
                                            uint32_t base, uint32_t x,
                                            uint32_t gb, uint32_t gs, int mt,
                                            int loaded, uint32_t empty,
                                            int warp, int lane) {
-  constexpr int kMax = MT > 0 ? MT : HD / 64;
+  constexpr int kMax = MT > 0 ? MT : m_tiles(HD);
   const int n = MT > 0 ? MT : mt;
   const int d0 = 16 * warp + 2 * (lane / 4), t = lane % 4;
   uint32_t fb[2][4][4], fs[2][4][4];
@@ -399,6 +425,7 @@ __device__ __forceinline__ void product_tn(float (&c)[HD / 64][BK / 2],
                              : make_float2(0.f, 0.f);
         const float xv[4] = {lo.x, lo.y, hi.x, hi.y};
         split4(xv, ab[j], as[j]);
+        pin(ab[j], as[j]);
       }
       if (hh == 1 && lane == 0)
         for (int a = 2 * m; a < 2 * m + 2 && 32 * a < loaded; ++a)
@@ -415,7 +442,7 @@ __device__ __forceinline__ void product_tn(float (&c)[HD / 64][BK / 2],
   }
   wgmma_wait<0>();
 #pragma unroll
-  for (int m = 0; m < HD / 64; ++m) fence_regs(c[m]);
+  for (int m = 0; m < m_tiles(HD); ++m) fence_regs(c[m]);
 }
 
 // One work item: the key tile at k0 of batch b, query head h (kv head
@@ -475,9 +502,9 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
   const float* rowv = (ROLE == 0 ? p.lse : p.delta) + bh * p.S;
   const float scale2 = p.scale * kLog2e;
 
-  float acc[HD / 64][BK / 2];
+  float acc[m_tiles(HD)][BK / 2];
 #pragma unroll
-  for (int m = 0; m < HD / 64; ++m)
+  for (int m = 0; m < m_tiles(HD); ++m)
 #pragma unroll
     for (int e = 0; e < BK / 2; ++e) acc[m][e] = 0.f;
 
@@ -554,7 +581,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
   }
   const float mult = ROLE == 0 && direct ? p.scale : 1.f;
 #pragma unroll
-  for (int m = 0; m < HD / 64; ++m)
+  for (int m = 0; m < m_tiles(HD); ++m)
 #pragma unroll
     for (int e = 0; e < BK / 2; ++e) {
       const int d = 64 * m + 16 * warp + 2 * g + (e / 2) % 2;
@@ -564,9 +591,9 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
     }
 }
 
-// KD, KV: k-steps of D and Dv (0: at run time). Up to HD = 128 a
-// persistent block takes items blockIdx.x, + gridDim.x, ...; the ring of Q
-// and dO tiles and the barriers' phases run on across items. At HD = 256 a
+// KD, KV: k-steps of D and Dv (0: at run time). A persistent block
+// (persistent(HD)) takes items blockIdx.x, + gridDim.x, ...; the ring of Q
+// and dO tiles and the barriers' phases run on across items. Otherwise a
 // block takes item blockIdx.x alone (see launch).
 template <int HD, int BK, int ST, int KD, int KV>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -575,7 +602,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, Params p) {
   using L = Smem<HD, BK, ST>;
-  constexpr bool kPersistent = HD <= 128;
+  constexpr bool kPersistent = persistent(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -775,6 +802,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                            allowed(p, qa, ka + 1) ? lo.y : 0.f,
                            allowed(p, qa + 8, ka + 1) ? hi.y : 0.f};
       split4(xv, ab[j], as[j]);
+      pin(ab[j], as[j]);
     }
     wgmma_fence();
 #pragma unroll
@@ -834,17 +862,11 @@ int launch_one(void (*kernel)(Params), dim3 grid, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-}
-
 // The five kernels of one backward (the group sum only where G > 1): HD
 // the tiles' head width, BK keys a dK/dV block, ST and DST the rings'
 // stages; KD, KV the k-steps of D and Dv and W the dQ width, each 0 where
-// read at run time.
+// read at run time. The SM count and the two kernels' shared-memory
+// attributes are set once a process and device (device_setup).
 template <int HD, int BK, int ST, int DST, int KD, int KV, int W>
 int launch(const Params& p, cudaStream_t stream) {
   const int Hk = p.H / p.group;
@@ -883,19 +905,17 @@ int launch(const Params& p, cudaStream_t stream) {
     return noted(err, "the tensor map of K^T's halves");
   auto kdkdv = dkdv::flash_bwd_dkdv<HD, BK, ST, KD, KV>;
   const size_t dkdv_smem = dkdv::Smem<HD, BK, ST>::kBytes;
-  if ((err = set_smem(kdkdv, dkdv_smem)))
-    return noted(err, "flash_bwd_dkdv's shared memory");
-  // HD <= 128: persistent, a block an SM (fewer where there are fewer
-  // items); HD = 256: a block an item, which the card deals to SMs as they
-  // free up: its items are few (at gemma3-1b's shapes 8 an SM) and unequal
-  // under the causal band, and a static deal of them measured slower
-  int dev = 0, sms = 0;
-  if ((err = static_cast<int>(cudaGetDevice(&dev))) ||
-      (err = static_cast<int>(cudaDeviceGetAttribute(
-           &sms, cudaDevAttrMultiProcessorCount, dev))))
-    return noted(err, "the card's SM count");
+  static std::atomic<unsigned long long> dkdv_set{0}, dq_set{0};
+  int sms = 0;
+  if ((err = device_setup(kdkdv, dkdv_smem, dkdv_set, sms)))
+    return noted(err, "flash_bwd_dkdv's set-up");
+  // persistent: a block an SM (fewer where there are fewer items);
+  // otherwise (HD = 160 and 256) a block an item, which the card deals to
+  // SMs as they free up: its items are unequal under the causal band, and
+  // a static deal of them measured slower (at gemma3-1b's shapes, 8 items
+  // an SM; at stablelm-12b's, 31 items an SM, 9 % slower)
   const int items = p.B * p.H * ((p.S + BK - 1) / BK);
-  const int blocks = HD == 256 || items < sms ? items : sms;
+  const int blocks = dkdv::persistent(HD) && items > sms ? sms : items;
   kdkdv<<<blocks, kThreads, dkdv_smem, stream>>>(tq, tdo, tk, tv, p);
   if ((err = static_cast<int>(cudaGetLastError())))
     return noted(err, "flash_bwd_dkdv launch");
@@ -905,12 +925,18 @@ int launch(const Params& p, cudaStream_t stream) {
   }
   auto kdq = dq::flash_bwd_dq<HD, DST, W>;
   const size_t dq_smem = dq::Smem<HD, DST>::kBytes;
-  if ((err = set_smem(kdq, dq_smem)))
-    return noted(err, "flash_bwd_dq's shared memory");
+  if ((err = device_setup(kdq, dq_smem, dq_set, sms)))
+    return noted(err, "flash_bwd_dq's set-up");
   kdq<<<dim3(p.B * p.H, (p.S + dq::kBQ - 1) / dq::kBQ), kThreads, dq_smem,
         stream>>>(tds, tkt, p);
   return noted(static_cast<int>(cudaGetLastError()), "flash_bwd_dq launch");
 }
+
+// The return value of a call whose q or dout breaks the layout rule (not
+// a cudaError_t): the wrapper then names the tensor and the rule.
+constexpr int kBadLayout = -1;
+
+using hopper::layout_ok;
 
 }  // namespace
 
@@ -923,78 +949,109 @@ const char* cuda_error_string(int err) {
 // what the last flash_attention_bwd that returned an error failed at
 const char* flash_attention_bwd_failure() { return g_failure; }
 
+// The arguments of one backward call, packed by the wrapper into one block
+// (flash_attention.py's _BWD_ARGS, "<8Q24q9Q7ifii": the 8-byte fields,
+// then the 4-byte ones, so no padding), which one ctypes argument passes.
 // q (B,H,S,D), k (B,Hk,S,D), v (B,Hk,S,Dv), o and dout (B,H,S,Dv) in; dq,
-// dk, dv (shaped as q, k, v) out; lse (B,H,S) contiguous float32 in, the
-// forward's log2-domain log-sum-exp. Contiguous float32 scratch: delta
-// (B,H,S); kv (B,Hk,2,S,D8) and vv (B,Hk,2,S,Dv8), D8 and Dv8 D and Dv
-// rounded up to 8; kt (B,Hk,2,D,ld) and ds (B,H,S,ld) with ld >= S a
-// multiple of 8; dkp (B,H,S,D) and dvp
-// (B,H,S,Dv) where H > Hk, else ignored (may be null). strides: 24
-// batch/head/sequence strides in elements, three each for q, k, v, o,
-// dout, dq, dk, dv; every last stride is 1; q and dout 16-byte aligned
-// with strides of multiples of 4 elements. D and Dv multiples of 4.
-// window <= 0: no window. Returns a cudaError_t.
-int flash_attention_bwd(const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, void* dq, void* dk,
-                        void* dv, const void* lse, void* delta, void* kv,
-                        void* vv, void* kt, void* ds, void* dkp, void* dvp,
-                        int B, int H, int Hk, int S, int D, int Dv, int ld,
-                        const long long* strides, float scale, int causal,
-                        int window, void* stream) {
+// dk, dv (shaped as q, k, v) out; st: their batch, head and sequence
+// strides in elements, three each in that order; every last stride is 1;
+// q and dout 16-byte aligned with strides of multiples of 4 elements,
+// which a call checks before all else (kBadLayout). lse (B,H,S) contiguous
+// float32 in, the forward's log2-domain log-sum-exp. Contiguous float32
+// scratch: delta (B,H,S); kv (B,Hk,2,S,D8) and vv (B,Hk,2,S,Dv8), D8 and
+// Dv8 D and Dv rounded up to 8; kt (B,Hk,2,D,ld) and ds (B,H,S,ld) with
+// ld >= S a multiple of 8; dkp (B,H,S,D) and dvp (B,H,S,Dv) where H > Hk,
+// else ignored (may be null). D and Dv multiples of 4. window <= 0: no
+// window. Returns a cudaError_t or kBadLayout.
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  void* dq;
+  void* dk;
+  void* dv;
+  long long st[kTensors][3];
+  const void* lse;
+  void* delta;
+  void* kv;
+  void* vv;
+  void* kt;
+  void* ds;
+  void* dkp;
+  void* dvp;
+  void* stream;
+  int B, H, Hk, S, D, Dv, ld;
+  float scale;
+  int causal, window;
+};
+static_assert(sizeof(BwdArgs) == 368, "the wrapper packs 368 bytes");
+
+int flash_attention_bwd(const BwdArgs* a) {
+  const int B = a->B, H = a->H, Hk = a->Hk, S = a->S, D = a->D, Dv = a->Dv;
+  const long long(&st)[kTensors][3] = a->st;
+  if (!(layout_ok(a->q, D, st[kQ][0], st[kQ][1], st[kQ][2], B, H, S, 4) &&
+        layout_ok(a->dout, Dv, st[kDO][0], st[kDO][1], st[kDO][2], B, H, S,
+                  4)))
+    return noted(kBadLayout, "the layout of q or dout");
   // an error that an earlier runtime call of this thread left (the
   // autograd engine's thread runs this) is not this call's: clear it, so
   // that the check after each launch reads that launch's
   cudaGetLastError();
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if (Hk <= 0 || H % Hk || D <= 0 || D > kMaxD || Dv <= 0 || Dv > kMaxD ||
-      D % 4 || Dv % 4 || ld < S || ld % 8)
+      D % 4 || Dv % 4 || a->ld < S || a->ld % 8)
     return noted(cudaErrorInvalidValue, "the shapes");
-  if (H > Hk && (dkp == nullptr || dvp == nullptr))
+  if (H > Hk && (a->dkp == nullptr || a->dvp == nullptr))
     return noted(cudaErrorInvalidValue, "the group sum's scratch");
   Params p;
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.o = static_cast<const float*>(o);
-  p.dout = static_cast<const float*>(dout);
-  p.dq = static_cast<float*>(dq);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
-  p.kv = static_cast<float*>(kv);
-  p.vv = static_cast<float*>(vv);
-  p.kt = static_cast<float*>(kt);
-  p.ds = static_cast<float*>(ds);
-  p.dkp = H > Hk ? static_cast<float*>(dkp) : nullptr;
-  p.dvp = H > Hk ? static_cast<float*>(dvp) : nullptr;
+  p.q = static_cast<const float*>(a->q);
+  p.k = static_cast<const float*>(a->k);
+  p.v = static_cast<const float*>(a->v);
+  p.o = static_cast<const float*>(a->o);
+  p.dout = static_cast<const float*>(a->dout);
+  p.dq = static_cast<float*>(a->dq);
+  p.dk = static_cast<float*>(a->dk);
+  p.dv = static_cast<float*>(a->dv);
+  p.lse = static_cast<const float*>(a->lse);
+  p.delta = static_cast<float*>(a->delta);
+  p.kv = static_cast<float*>(a->kv);
+  p.vv = static_cast<float*>(a->vv);
+  p.kt = static_cast<float*>(a->kt);
+  p.ds = static_cast<float*>(a->ds);
+  p.dkp = H > Hk ? static_cast<float*>(a->dkp) : nullptr;
+  p.dvp = H > Hk ? static_cast<float*>(a->dvp) : nullptr;
   p.B = B;
   p.H = H;
   p.group = H / Hk;
   p.S = S;
   p.D = D;
   p.Dv = Dv;
-  p.ld = ld;
+  p.ld = a->ld;
   for (int i = 0; i < kTensors; ++i)
-    for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
-  p.scale = scale;
-  p.causal = causal;
-  p.window = window;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+    for (int j = 0; j < 3; ++j) p.st[i][j] = st[i][j];
+  p.scale = a->scale;
+  p.causal = a->causal;
+  p.window = a->window;
+  cudaStream_t stream = static_cast<cudaStream_t>(a->stream);
   const int hd = D > Dv ? D : Dv;
   if (hd <= 64) {
-    if (D == 64 && Dv == 64) return launch<64, 64, 2, 4, 8, 8, 64>(p, st);
-    return launch<64, 64, 2, 4, 0, 0, 0>(p, st);
+    if (D == 64 && Dv == 64) return launch<64, 64, 2, 4, 8, 8, 64>(p, stream);
+    return launch<64, 64, 2, 4, 0, 0, 0>(p, stream);
   }
   if (hd <= 128) {
     if (D == 128 && Dv == 128)
-      return launch<128, 32, 2, 4, 16, 16, 128>(p, st);
+      return launch<128, 32, 2, 4, 16, 16, 128>(p, stream);
     if (D == 96 && Dv == 64)  // MLA: 64 nope + 32 rope; v 64
-      return launch<128, 32, 2, 4, 12, 8, 96>(p, st);
-    return launch<128, 32, 2, 4, 0, 0, 0>(p, st);
+      return launch<128, 32, 2, 4, 12, 8, 96>(p, stream);
+    return launch<128, 32, 2, 4, 0, 0, 0>(p, stream);
   }
-  if (D == 256 && Dv == 256) return launch<256, 16, 1, 2, 32, 32, 256>(p, st);
-  return launch<256, 16, 1, 2, 0, 0, 0>(p, st);
+  if (D == 160 && Dv == 160)  // stablelm-12b: 5 atoms, 32 keys, one stage
+    return launch<160, 32, 1, 4, 20, 20, 160>(p, stream);
+  if (D == 256 && Dv == 256)
+    return launch<256, 16, 1, 2, 32, 32, 256>(p, stream);
+  return launch<256, 16, 1, 2, 0, 0, 0>(p, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels (the bf16
-// and f32 forwards, the f32 backward): TMA tensor maps and copies,
+// and f32 forwards, the f32 backward): TMA tensor maps and copies, a
+// launch's once-a-device set-up and the layout rule that TMA sets,
 // mbarriers, wgmma descriptors and products (bf16, and tf32 for 3xTF32),
 // the split of f32 operands into TF32 halves, and register hand-over
 // between warpgroups (setmaxnreg).
@@ -20,6 +21,7 @@
 // types), so the f32 kernels take every A operand from registers.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
@@ -84,6 +86,55 @@ inline int make_map(CUtensorMap* map, const void* ptr, int cols, int S,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// host: a launch's set-up and the layout rule
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+// What a launch asks of the runtime once a process and device, not once a
+// call: the current device, its SM count (read at its first launch), and
+// whether `kernel`'s shared-memory attribute is set there (a bit a device
+// in `set`, one word for each kernel instantiation).
+template <typename Kernel>
+inline int device_setup(Kernel kernel, size_t smem,
+                        std::atomic<unsigned long long>& set, int& sms) {
+  static std::atomic<int> sm_count[kMaxDevices];  // 0: not read yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  sms = sm_count[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sm_count[dev].store(sms, std::memory_order_relaxed);
+  }
+  const unsigned long long bit = 1ull << dev;
+  if (!(set.load(std::memory_order_acquire) & bit)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    set.fetch_or(bit, std::memory_order_release);
+  }
+  return 0;
+}
+
+// The rule that TMA and the 16-byte stores set, flash_attention.py's
+// check_tma_layout in one pass over a call's argument block: a 16-byte
+// aligned pointer, a last dim of whole 16-byte units (n elements), and
+// batch, head and sequence strides of whole units wherever that dim is
+// longer than 1.
+inline bool layout_ok(const void* ptr, int cols, long long sb,
+                      long long sh, long long ss, int B, int H, int S,
+                      int n) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && cols % n == 0 &&
+         (B <= 1 || sb % n == 0) && (H <= 1 || sh % n == 0) &&
+         (S <= 1 || ss % n == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -237,6 +288,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // The products, written out per shape: wgmma_ss is D (64 x N f32) += A (64

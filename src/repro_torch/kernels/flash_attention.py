@@ -241,8 +241,7 @@ def _like_bshd(t: torch.Tensor) -> torch.Tensor:
     the model's transposed projections are, so that the gradient's
     transpose back is free."""
     b, h, s, d = t.shape
-    return torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1),
-                               dtype=t.dtype, device=t.device)
+    return t.new_empty_strided((b, h, s, d), (s * h * d, d, h * d, 1))
 
 
 # dS of one launch stays under this many bytes: a larger problem runs in
@@ -266,6 +265,25 @@ def _slabs(b: int, hk: int, group: int, s: int, ld: int):
             for i in range(b) for j in range(0, hk, n)]
 
 
+# The backward's arguments as ``csrc/flash_attention_bwd.cu``'s BwdArgs
+# takes them, one packed block: q, k, v, out, dout, dq, dk, dv; their batch,
+# head and sequence strides; lse, the seven f32 scratch pointers (0 where
+# unused), the stream; B, H, Hk, S, D, Dv, ld; scale, causal, window. The C
+# entry checks ``check_tma_layout``'s rule on q and dout first and returns
+# _BAD_LAYOUT where it fails.
+_BWD_ARGS = struct.Struct("<8Q24q9Q7ifii")
+
+
+def _bwd_fn():
+    """The C entry point of ``csrc/flash_attention_bwd.cu``, its argument
+    type set at the library's first call."""
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_char_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
@@ -279,22 +297,30 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     must pass ``check_tma_layout``. The kernels keep dS (B, H, S, S rounded
     up to 8) in device memory for the dQ pass; where that passes
     ``BWD_DS_BYTES``, the call runs in slabs of batches or kv-head
-    groups."""
-    check_args(q, k, v)
+    groups. The host work is kept to what a call needs, as the forward's:
+    the checks, the three outputs and one scratch allocation, the stream's
+    raw handle and one ctypes call of one packed argument block a slab, on
+    which the C entry checks the layout rule."""
+    check_args(q, k, v)  # q, k and v of one dtype and device
     b, h, s, d = q.shape
     hk, dv_dim = k.shape[1], v.shape[-1]
-    tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout}
     device = q.device
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise ValueError(f"flash_attention_bwd on the card takes float32 "
-                             f"only, got {name} in {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"flash_attention_bwd: {name} on {t.device}, "
-                             f"q on {device}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"flash_attention_bwd wants a contiguous last "
-                             f"dim, {name} has strides {t.stride()}")
+    if not (q.dtype == out.dtype == dout.dtype == torch.float32
+            and out.device == dout.device == device
+            and q.stride(-1) == k.stride(-1) == v.stride(-1)
+            == out.stride(-1) == dout.stride(-1) == 1):
+        tensors = {"q": q, "k": k, "v": v, "out": out, "dout": dout}
+        for name, t in tensors.items():  # name what fails
+            if t.dtype != torch.float32:
+                raise ValueError(f"flash_attention_bwd on the card takes "
+                                 f"float32 only, got {name} in {t.dtype}")
+            if t.device != device:
+                raise ValueError(f"flash_attention_bwd: {name} on "
+                                 f"{t.device}, q on {device}")
+            if t.stride(-1) != 1:
+                raise ValueError(f"flash_attention_bwd wants a contiguous "
+                                 f"last dim, {name} has strides "
+                                 f"{t.stride()}")
     if out.shape != (b, h, s, dv_dim) or dout.shape != out.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
                          f"dout {tuple(dout.shape)}, want "
@@ -303,23 +329,21 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_bwd on the card takes head dims "
                          f"up to {MAX_HEAD_DIM}, got D={d}, Dv={dv_dim}")
     if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
-            or lse.device != q.device or not lse.is_contiguous():
+            or lse.device != device or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype} on {lse.device}, want a contiguous "
                          f"{(b, h, s)} float32 tensor on {q.device}")
-    check_tma_layout({"q": q, "dout": dout})
-    dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
-    fn = _build.load("flash_attention_bwd").flash_attention_bwd
-    if fn.argtypes is None:  # the library's first call
-        fn.argtypes = (
-            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
-            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-               ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
-    stream = torch.cuda.current_stream(device).cuda_stream
     group, ld = h // hk, _up(s, 8)
     slabs = _slabs(b, hk, group, s, ld)
+    if len(slabs) > 1:
+        # a slab's views can keep the rule where the whole tensor breaks it
+        # (a batch stride that a one-batch slab does not read): check the
+        # whole before the first slab launches
+        check_tma_layout({"q": q, "dout": dout})
+    dq, dk, dv = _like_bshd(q), _like_bshd(k), _like_bshd(v)
+    fn = _bwd_fn()
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     # f32 scratch of the largest (the first) slab, in one buffer: delta
     # (B, H, S); K's and V's halves (B, Hk, 2, S, D | Dv rounded up to 8);
     # K^T's halves (B, Hk, 2, D, ld); dS (B, H, S, ld), ld = S rounded up
@@ -335,25 +359,29 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if group > 1:
         sizes += [nb * nh * s * d, nb * nh * s * dv_dim]
     sizes = [_up(n, 64) for n in sizes]
-    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    scratch = q.new_empty(sum(sizes))
     ptrs, at = [], scratch.data_ptr()
     for n in sizes:
         ptrs.append(at)
         at += 4 * n
-    ptrs += [None] * (7 - len(ptrs))
+    ptrs += [0] * (7 - len(ptrs))
+    whole = (q, k, v, out, dout, dq, dk, dv)
+    views, lse_ptr = whole, lse.data_ptr()
     for bs, ks in slabs:
-        hs = slice(ks.start * group, ks.stop * group)  # their query heads
-        views = (q, k, v, out, dout, dq, dk, dv)
         if len(slabs) > 1:  # k, v, dk and dv by kv head, the rest by head
+            hs = slice(ks.start * group, ks.stop * group)  # their heads
             views = tuple(t[bs, ks if i in (1, 2, 6, 7) else hs]
-                          for i, t in enumerate(views))
+                          for i, t in enumerate(whole))
+            lse_ptr = lse[bs, hs].data_ptr()
         qv, kv = views[0], views[1]
-        strides = (ctypes.c_longlong * 24)(*[
-            x for t in views for x in t.stride()[:3]])
-        err = fn(*(t.data_ptr() for t in views), lse[bs, hs].data_ptr(),
-                 *ptrs, qv.shape[0], qv.shape[1], kv.shape[1], s, d, dv_dim,
-                 ld, strides, scale, int(causal), int(window or 0), stream)
+        err = fn(_BWD_ARGS.pack(
+            *[t.data_ptr() for t in views],
+            *[x for t in views for x in t.stride()[:3]], lse_ptr, *ptrs,
+            stream, qv.shape[0], qv.shape[1], kv.shape[1], s, d, dv_dim, ld,
+            scale, int(causal), int(window or 0)))
         if err:
+            if err == _BAD_LAYOUT:  # name the tensor and the rule it breaks
+                check_tma_layout({"q": q, "dout": dout})
             lib = _build.load("flash_attention_bwd")
             lib.flash_attention_bwd_failure.restype = ctypes.c_char_p
             _build.check(lib, err, "flash_attention_bwd launch, at "

@@ -10,6 +10,7 @@ they need no JAX, so that they run on a machine with the card:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_kernels.py
 """
+import inspect
 import io
 import math
 import re
@@ -305,6 +306,68 @@ def test_flash_attention_fwd_takes_one_block_and_checks_layout_first():
         assert "device_setup(" in body
         assert "cudaFuncSetAttribute" not in body
         assert "cudaDeviceGetAttribute" not in body
+
+
+def test_flash_attention_bwd_cu_d160_has_its_own_instantiation():
+    """D = Dv = 160 (stablelm-12b) goes to a backward instantiation whose
+    k-steps (twenty of 8, D and Dv) and dQ width (160) are template
+    constants: 160-wide tiles of five 32-column atoms, 32-key tiles, one
+    Q/dO stage, a block an item (as at 256; persistent blocks measured
+    slower), with dK^T and dV^T as three m64 tiles (the last with 32 real
+    rows) and dQ's n-tiles 64, 64 and 32 wide. Every other
+    width above 128 still reaches the instantiation of the 256-wide tile
+    that reads D and Dv at run time, after the branch; the products' widths
+    and so the padded bound are unchanged."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    entry = _body(src, "int flash_attention_bwd(const BwdArgs* a) {")
+    m = re.search(r"if \(D == 160 && Dv == 160\)[^\n]*\n\s*return "
+                  r"launch<([\d, ]+)>\(p, stream\);", entry)
+    assert m and m.group(1) == "160, 32, 1, 4, 20, 20, 160"
+    assert entry.index(m.group(0)) \
+        < entry.index("return launch<256, 16, 1, 2, 0, 0, 0>(p, stream);")
+    for run_time in ("64, 64, 2, 4", "128, 32, 2, 4", "256, 16, 1, 2"):
+        assert f"return launch<{run_time}, 0, 0, 0>(p, stream);" in entry
+    # dK^T and dV^T run in m64 tiles of a head tile that need not be a
+    # multiple of 64; only tiles up to 128 wide are persistent
+    assert "constexpr int m_tiles(int hd) { return (hd + 63) / 64; }" in src
+    assert "HD / 64" not in src.replace("? (W + 63) / 64 : HD / 64", "")
+    assert "constexpr bool persistent(int hd) { return hd <= 128; }" in src
+    assert "dkdv::persistent(HD) && items > sms ? sms : items" in src
+    # the dQ pass's last n-tile is 32 wide where W is not a multiple of 64
+    assert "constexpr int kNT = W > 0 ? (W + 63) / 64 : HD / 64;" in src
+    assert flash.bwd_product_widths(160, 160) == (160, 160, 192, 160, 192)
+
+
+def test_flash_attention_bwd_takes_one_block_and_checks_layout_first():
+    """The backward's C entry takes one packed argument block, as many
+    bytes as the wrapper packs, and checks q's and dout's layout before
+    anything else, the empty problem's early return included; the SM count
+    and each kernel's shared-memory attribute are set once a device
+    (device_setup), not once a call. The forward and the backward share
+    device_setup and the layout rule (hopper.cuh)."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    hop = (_build.CSRC / "hopper.cuh").read_text()
+    entry = _body(src, "int flash_attention_bwd(const BwdArgs* a) {")
+    assert f"sizeof(BwdArgs) == {flash._BWD_ARGS.size}" in src
+    first = entry.index("return noted(kBadLayout,")
+    assert first < entry.index("cudaGetLastError();")
+    assert first < entry.index("if (B <= 0 || H <= 0 || S <= 0) return 0;")
+    assert entry.count("layout_ok(") == 2  # q and dout, which TMA reads
+    assert "constexpr int kBadLayout = -1;" in src \
+        and flash._BAD_LAYOUT == -1
+    launch = _body(src, "int launch(const Params& p")
+    assert launch.count("device_setup(") == 2  # dK/dV and dQ
+    for per_call in ("cudaFuncSetAttribute", "cudaDeviceGetAttribute",
+                     "cudaGetDevice", "set_smem"):
+        assert per_call not in src, per_call
+    for helper in ("inline int device_setup(", "inline bool layout_ok("):
+        assert helper in hop
+        assert helper not in src
+        assert helper not in (_build.CSRC / "flash_attention.cu").read_text()
+    wrapper = inspect.getsource(flash.flash_attention_bwd_cuda)
+    assert "_BWD_ARGS.pack(" in wrapper
+    assert "_cuda_getCurrentRawStream" in wrapper
+    assert "current_stream(" not in wrapper
 
 
 @pytest.mark.parametrize("d,dv,dtype,widths", [
@@ -1226,20 +1289,22 @@ def test_flash_attention_bwd_kernel_rejects_misaligned_dout(cuda, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap", [2 << 20, 1 << 20])
-def test_flash_attention_bwd_kernel_slabs(cuda, monkeypatch, cap):
-    """A problem whose dS (2.9 MB here) passes BWD_DS_BYTES runs in slabs
-    (of batches at 2 MiB, of kv heads within a batch at 1 MiB) and gives
-    the bits of one launch: each slab runs the same kernels on its own
-    heads."""
-    q, k, v, dout = _bwd_on_card(cuda, 2, 4, 2, 300, 64, 64, seed=5)
+@pytest.mark.parametrize("h,d,cap", [(4, 64, 2 << 20), (4, 64, 1 << 20),
+                                     (8, 160, 4 << 20)])
+def test_flash_attention_bwd_kernel_slabs(cuda, monkeypatch, h, d, cap):
+    """A problem whose dS (2.9 MB at 4 heads, 5.8 MB at 8) passes
+    BWD_DS_BYTES runs in slabs (of batches at 2 MiB, of kv heads within a
+    batch at 1 MiB; stablelm-12b's D = 160 in a GQA group of 4, of batches
+    at 4 MiB) and gives the bits of one launch: each slab runs the same
+    kernels on its own heads."""
+    q, k, v, dout = _bwd_on_card(cuda, 2, h, 2, 300, d, d, seed=5)
     out, lse = flash.flash_attention_cuda(q, k, v, causal=True, window=None,
                                           scale=None, with_lse=True)
     whole = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
                                            causal=True, window=None,
                                            scale=None)
     monkeypatch.setattr(flash, "BWD_DS_BYTES", cap)
-    assert len(flash._slabs(2, 2, 2, 300, 304)) > 1
+    assert len(flash._slabs(2, 2, h // 2, 300, 304)) > 1
     before = ops.LAUNCHES["flash_attention_bwd"]
     sliced = flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
                                             causal=True, window=None,

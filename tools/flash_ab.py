@@ -8,21 +8,21 @@ Runs each named checkout once, in the order given, each in a process of
 its own (a checkout is a directory with ``src/repro_torch``). A run builds
 that checkout's ``flash_attention`` and ``flash_attention_bwd`` kernels
 and runs this repository's ``chip_smoke.py`` ``flash`` phase on them (the
-forward at gemma3-1b's and Jamba's prefill shapes, f32 and bf16). Where
-the checkout's backward takes the forward's lse, as this one's does, it
-also runs the ``flash_bwd`` phase (gemma3-1b's train shapes: f32, B=4,
-H=4, Hk=1, S=1024, D=256, window 512 and none, and S=1000 with window
-512) and times each kernel of one backward call by name with
-``torch.profiler`` (device time summed over 10 calls, divided by 10).
-Kernel, plain and SDPA ms are CUDA-event medians; each forward case also
-carries its kernels' device ms (``torch.profiler``). Prints one JSON line a
-run: the cases, the backward's per-kernel ms at S=1024 for each window,
-the host microseconds a forward call takes to return at gemma3-1b's
-window-512 shape and at stablelm-12b's (B=4, H=32, Hk=8, S=1024, D=160)
-in f32 and bf16, that call split into its stages at stablelm's shape
-(``host_split``), the C side's runtime and driver calls timed alone
-(``c_probe``), and the ``ptxas`` registers and spills of the backward's
-kernels. ``--forward`` leaves the backward out. The
+forward at every shape of that phase, f32 and bf16). Where the checkout's
+backward takes the forward's lse, as this one's does, it also runs the
+``flash_bwd`` phase (every backward shape of chip_smoke: gemma3-1b's
+train shapes, minicpm3-4b's, musicgen-large's, qwen2-vl-2b's,
+deepseek-moe-16b's and stablelm-12b's), whose cases carry each kernel's
+device ms by name (``torch.profiler``: device time summed over 10 calls,
+divided by 10) and the host µs a call. Kernel, plain and SDPA ms are
+CUDA-event medians; each forward case also carries its kernels' device ms.
+Prints one JSON line a run: the cases, the host microseconds a forward
+call takes to return at gemma3-1b's window-512 shape and at stablelm-12b's
+(B=4, H=32, Hk=8, S=1024, D=160) in f32 and bf16, that call split into its
+stages at stablelm's shape (``forward_host_split``), the C side's runtime
+and driver calls timed alone (``c_side_us``), the backward's call split
+likewise (``backward_host_split``), and the ``ptxas`` registers and spills
+of the backward's kernels. ``--forward`` leaves the backward out. The
 phases take their bounds from the checkout's ``repro_torch.roofline`` rates
 and its kernel module's ``work`` functions, so a checkout must have both.
 """
@@ -31,43 +31,11 @@ from __future__ import annotations
 import ctypes
 import inspect
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def kernel_ms(torch, flash, window, calls=10) -> dict:
-    """Device ms of each kernel in one backward call at S=1024."""
-    from torch.profiler import ProfilerActivity, profile
-    dev = torch.device("cuda")
-    b, h, hk, s, d = 4, 4, 1, 1024, 256
-    gen = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev)
-               for shape in ((b, h, s, d), (b, hk, s, d), (b, hk, s, d)))
-    dout = torch.randn((b, h, s, d), generator=gen, device=dev)
-    out, lse = flash.flash_attention_cuda(q, k, v, causal=True,
-                                          window=window, scale=None,
-                                          with_lse=True)
-
-    def call():
-        return flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
-                                              causal=True, window=window,
-                                              scale=None)
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    times = {}
-    for ev in prof.key_averages():
-        m = re.search(r"flash_bwd_\w+", ev.key)
-        if m:
-            times[m.group()] = ev.self_device_time_total / 1e3 / calls
-    return times
 
 
 # (B, H, Hk, S, D, window) of the forward's host-work shapes: gemma3-1b's
@@ -248,6 +216,104 @@ def host_split(torch, ops, flash, _build, host_us) -> dict:
     return out
 
 
+def backward_host_split(torch, flash, _build, host_us) -> dict:
+    """Host microseconds of each stage of one ``flash_attention_bwd_cuda``
+    call at stablelm-12b's shape (f32, causal), each stage timed alone
+    (chip_smoke's ``host_us``): the argument checks (``check_args``, then
+    the wrapper's dtype, device, stride, shape and lse checks together), the
+    three outputs' allocation (``torch.empty_strided`` as older checkouts
+    make them, ``new_empty_strided`` as this one does), the scratch's, the
+    layout check in Python, the stride list (and the stride array that
+    older checkouts build), the current stream (as a Stream, and as the raw
+    handle), the ctypes call alone (B = 0: the C entry returns at once) and
+    whole (the C side and the five launches), and the whole wrapper call,
+    there and at gemma3-1b's window-512 shape. A checkout passes the C
+    entry one packed block (``_BWD_ARGS``, the packing timed with the call)
+    or, older ones, 29 arguments and a stride array."""
+    b, h, hk, s, d, _ = HOST_SHAPES["stablelm"]
+    ld = -(-s // 8) * 8
+    q, k, v = _inputs(torch, HOST_SHAPES["stablelm"], torch.float32)
+    dout = torch.randn_like(q)
+    out, lse = flash.flash_attention_cuda(q, k, v, causal=True, window=None,
+                                          scale=None, with_lse=True)
+    kw = dict(causal=True, window=None, scale=None)
+    flash.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)  # load
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    dev = q.device
+    views = (q, k, v, out, dout, q.clone(), k.clone(), v.clone())
+    strides = [x for t in views for x in t.stride()[:3]]
+    sizes = [b * h * s, b * hk * 2 * s * d, b * hk * 2 * s * d,
+             b * hk * 2 * d * ld, b * h * s * ld, b * h * s * d, b * h * s * d]
+    scratch = torch.empty(sum(sizes), device=dev)
+    ptrs, at = [], scratch.data_ptr()
+    for n in sizes:
+        ptrs.append(at)
+        at += 4 * n
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    packed = getattr(flash, "_BWD_ARGS", None)
+    layout = getattr(flash, "check_tma_layout", None) \
+        or flash.check_mma_layout
+
+    def launch(batch):
+        if packed is not None:
+            return fn(packed.pack(
+                *[t.data_ptr() for t in views], *strides, lse.data_ptr(),
+                *ptrs, stream, batch, h, hk, s, d, d, ld, d ** -0.5, 1, 0))
+        return fn(*(t.data_ptr() for t in views), lse.data_ptr(), *ptrs,
+                  batch, h, hk, s, d, d, ld,
+                  (ctypes.c_longlong * 24)(*strides), d ** -0.5, 1, 0,
+                  stream)
+
+    def checks():
+        for t in (q, k, v, out, dout):
+            if t.dtype != torch.float32 or t.device != dev \
+                    or t.stride(-1) != 1:
+                raise ValueError
+        if out.shape != (b, h, s, d) or dout.shape != out.shape \
+                or lse.shape != (b, h, s) or not lse.is_contiguous():
+            raise ValueError
+
+    def outputs_old():
+        return [torch.empty_strided(t.shape, (s * t.shape[1] * d, d,
+                                              t.shape[1] * d, 1),
+                                    dtype=t.dtype, device=t.device)
+                for t in (q, k, v)]
+
+    def outputs_new():
+        return [t.new_empty_strided(t.shape, (s * t.shape[1] * d, d,
+                                              t.shape[1] * d, 1))
+                for t in (q, k, v)]
+    stages = {
+        "check_args": lambda: flash.check_args(q, k, v),
+        "checks": checks,
+        "outputs_empty_strided": outputs_old,
+        "outputs_new_empty_strided": outputs_new,
+        "scratch": lambda: torch.empty(sum(sizes), device=dev),
+        "layout": lambda: layout({"q": q, "dout": dout}),
+        "strides": lambda: [x for t in views for x in t.stride()[:3]],
+        "stride_array": lambda: (ctypes.c_longlong * 24)(*strides),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(
+            q.get_device()),
+        "ctypes_only": lambda: launch(0),
+        "ctypes_and_c_side": lambda: launch(b),
+        "call": lambda: flash.flash_attention_bwd_cuda(q, k, v, out, dout,
+                                                       lse, **kw),
+    }
+    res = {name: round(host_us(torch, fn_), 2) for name, fn_ in stages.items()}
+    b, h, hk, s, d, window = HOST_SHAPES["gemma_w512"]
+    q, k, v = _inputs(torch, HOST_SHAPES["gemma_w512"], torch.float32)
+    dout = torch.randn_like(q)
+    out, lse = flash.flash_attention_cuda(q, k, v, causal=True,
+                                          window=window, scale=None,
+                                          with_lse=True)
+    res["call gemma_w512"] = round(host_us(
+        torch, lambda: flash.flash_attention_bwd_cuda(
+            q, k, v, out, dout, lse, causal=True, window=window,
+            scale=None)), 2)
+    return res
+
+
 def run_one(checkout: Path, forward_only: bool) -> dict:
     sys.path.insert(0, str(checkout / "src"))
     sys.path.insert(0, str(ROOT))
@@ -274,8 +340,8 @@ def run_one(checkout: Path, forward_only: bool) -> dict:
     log = _build.library_path("flash_attention_bwd").with_suffix(".log")
     out["backward"] = chip_smoke.phase_flash_bwd(torch, ref, rl,
                                                  flash)["cases"]
-    out["kernel_ms"] = {str(w): kernel_ms(torch, flash, w)
-                        for w in (512, None)}
+    out["backward_host_split"] = backward_host_split(torch, flash, _build,
+                                                     chip_smoke.host_us)
     out["ptxas"] = chip_smoke.ptxas_usage(log.read_text())
     return out
 
