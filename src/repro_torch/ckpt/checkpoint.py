@@ -137,7 +137,7 @@ class AssiseCheckpointer:
         self._pending: Optional[threading.Thread] = None
         # scan_s: time in the changed-block scan (upload + delta_mask)
         self.stats = {"bytes_full": 0, "bytes_logged": 0, "saves": 0,
-                      "commit_s": 0.0, "scan_s": 0.0}
+                      "scan_s": 0.0}
 
     def _leaf_key(self, step: int, name: str) -> str:
         if self.cfg.delta:  # stable key: steps patch it in place
@@ -148,7 +148,6 @@ class AssiseCheckpointer:
     def save(self, step: int, state: Any, extra: Optional[dict] = None):
         """Write one checkpoint. state: pytree of arrays (numpy/torch)."""
         self.wait()  # serialize with any pending async commit
-        t0 = time.monotonic()
         leaves = _flatten(state)
         manifest = {"step": step, "leaves": sorted(leaves),
                     "extra": extra or {},
@@ -200,7 +199,6 @@ class AssiseCheckpointer:
         self._prev = new_prev
         self._saved_steps.append(step)
         self.stats["saves"] += 1
-        self.stats["commit_s"] += time.monotonic() - t0
         self._gc()
 
     def wait(self):

@@ -34,7 +34,7 @@ from repro_torch import device as device_mod
 from repro_torch.ckpt import AssiseCheckpointer, CheckpointConfig
 from repro_torch.ckpt.checkpoint import _flatten, unflatten_into
 from repro_torch.configs import get_config
-from repro_torch.core import AssiseCluster
+from repro_torch.core import AssiseCluster, obs_model
 from repro_torch.data import TokenPipeline
 from repro_torch.kernels.ops import LAUNCHES
 from repro_torch.models.transformer import Model, RunConfig, loss_fn
@@ -51,16 +51,19 @@ def make_train_step(cfg, rc, opt_cfg):
     """Returns step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics): the loss and every parameter's gradient by autograd, then
     AdamW, which updates the parameters and moments in place (the JAX
-    step donates them)."""
+    step donates them). Under the profiler a step is a ``train/step``
+    span."""
     def step_fn(params, opt_state, batch):
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss, metrics = loss_fn(cfg, rc, params, batch)
-        grads = tree_unflatten(params, torch.autograd.grad(loss, leaves))
-        with torch.no_grad():
-            params, opt_state, gnorm = adamw_update(opt_cfg, grads,
-                                                    opt_state, params)
+        with obs_model.span("step", batch["tokens"], "train"):
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            loss, metrics = loss_fn(cfg, rc, params, batch)
+            grads = tree_unflatten(params,
+                                   torch.autograd.grad(loss, leaves))
+            with torch.no_grad():
+                params, opt_state, gnorm = adamw_update(opt_cfg, grads,
+                                                        opt_state, params)
         return params, opt_state, {"loss": loss.detach(), "gnorm": gnorm,
                                    "xent": metrics["xent"].detach(),
                                    "aux": metrics["aux"].detach()}

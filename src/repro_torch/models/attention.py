@@ -24,6 +24,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import AttnSpec
+from repro_torch.core import obs_model
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, normal_init, reshape,
                                        rms_normalize, shard_offset)
@@ -229,7 +230,9 @@ def gqa_forward(params: dict, x: torch.Tensor, spec: AttnSpec, *,
     if cache is not None:  # prefill: write into the cache at [0, s)
         _write(cache["k"][:, :s], k)
         _write(cache["v"][:, :s], v)
-    out = attention(q, k, v, window=spec.window, shard=shard)
+    with obs_model.span("attn.core", q) as sp:
+        out = sp.output(attention(sp.input(q), k, v, window=spec.window,
+                                  shard=shard))
     return _heads_out(out.reshape(b, s, -1), shard) @ params["wo"], cache
 
 
@@ -246,8 +249,9 @@ def gqa_decode(params: dict, x: torch.Tensor, spec: AttnSpec, *, pos: int,
     _write(cache["k"][:, pos:pos + 1], k)
     _write(cache["v"][:, pos:pos + 1], v)
     cur = torch.full((b,), pos, dtype=torch.int64, device=x.device)
-    out = decode_attention(q, cache["k"], cache["v"], cur_pos=cur,
-                           window=spec.window)
+    with obs_model.span("attn.core", q, alloc=True):
+        out = decode_attention(q, cache["k"], cache["v"], cur_pos=cur,
+                               window=spec.window)
     return out.reshape(b, s, -1) @ params["wo"], cache
 
 
@@ -309,7 +313,9 @@ def mla_forward(params: dict, x: torch.Tensor, spec: AttnSpec, *,
     if cache is not None:  # the compressed kv, not K and V (MLA's saving)
         _write(cache["c_kv"][:, :s], c_kv)
         _write(cache["k_rope"][:, :s], k_rope[:, :, 0])
-    out = attention(q, k, v, scale=_mla_scale(spec), shard=shard)
+    with obs_model.span("attn.core", q) as sp:
+        out = sp.output(attention(sp.input(q), k, v, scale=_mla_scale(spec),
+                                  shard=shard))
     return _heads_out(out.reshape(b, s, -1), shard) @ params["wo"], cache
 
 

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ArchConfig, LayerSpec, Stage
+from repro_torch.core import obs_model
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -215,22 +216,32 @@ def _apply_block(cfg, spec: LayerSpec, rc, params, x, *, mode, positions,
                  pos, cache, n_groups):
     """Returns (x, the MoE aux loss: a plain 0.0 for a dense MLP, so that
     a dense model's serving launches nothing for it). An RWKV layer's one
-    cache dict holds both its mixes' state."""
+    cache dict holds both its mixes' state. Attention and the MLP run
+    inside ``obs_model`` spans (``<mode>/attn``, ``<mode>/mlp``), which
+    record only under the profiler."""
     h = apply_norm(cfg.norm, params["ln1"], x, cfg.norm_eps)
-    mix_out, _ = _apply_mixer(cfg, spec, rc, params["mixer"], h, mode=mode,
-                              positions=positions, pos=pos, cache=cache)
+    sp = obs_model.span("attn", h, mode) if spec.kind == "attn" \
+        else obs_model.NO_SPAN
+    with sp:
+        mix_out, _ = _apply_mixer(cfg, spec, rc, params["mixer"],
+                                  sp.input(h), mode=mode,
+                                  positions=positions, pos=pos, cache=cache)
+        mix_out = sp.output(mix_out)
     x = x + mix_out
     if rc.shard is not None:  # the row-parallel output's partial sums
         x = rc.shard(x, ("data", None, None))
     aux = 0.0
     h = apply_norm(cfg.norm, params["ln2"], x, cfg.norm_eps)
-    if spec.mlp.kind == "dense":
-        x = x + apply_mlp(params["mlp"], h, spec.mlp.act)
-    elif spec.mlp.kind == "moe":
-        y, aux = moe_mod.apply_moe(params["mlp"], h, spec.mlp.moe,
-                                   spec.mlp.act, n_groups=n_groups,
-                                   capacity_factor=rc.capacity_factor,
-                                   shard=rc.shard)
+    if spec.mlp.kind in ("dense", "moe"):
+        with obs_model.span("mlp", h, mode) as sp:
+            if spec.mlp.kind == "dense":
+                y = apply_mlp(params["mlp"], sp.input(h), spec.mlp.act)
+            else:
+                y, aux = moe_mod.apply_moe(
+                    params["mlp"], sp.input(h), spec.mlp.moe, spec.mlp.act,
+                    n_groups=n_groups, capacity_factor=rc.capacity_factor,
+                    shard=rc.shard)
+            y = sp.output(y)
         x = x + y
     elif spec.kind == "rwkv":
         y, _ = ssm_mod.rwkv_channel_mix(params["mlp"], h, cache=cache,
@@ -425,11 +436,15 @@ def _label_logits(logits, labels):
 
 
 def _xent_chunk(cfg: ArchConfig, rc: RunConfig, params, x_c, lab_c):
-    logits = _logits(cfg, params, x_c, rc).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = _label_logits(logits, lab_c.clamp_min(0))
-    mask = (lab_c >= 0).float()
-    return ((lse - ll) * mask).sum(), mask.sum()
+    """One chunk's head and cross-entropy, in a ``train/head`` span: the
+    function that ``_chunked_xent`` checkpoints, so that the chunk's
+    recompute in the backward is a span of its own."""
+    with obs_model.span("head", x_c, "train") as sp:
+        logits = _logits(cfg, params, sp.input(x_c), rc).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = _label_logits(logits, lab_c.clamp_min(0))
+        mask = (lab_c >= 0).float()
+        return sp.output(((lse - ll) * mask).sum()), mask.sum()
 
 
 def _chunked_xent(cfg: ArchConfig, rc: RunConfig, params, x, labels):
@@ -479,19 +494,25 @@ def prefill(cfg: ArchConfig, params, tokens, caches,
             rc: RunConfig = RunConfig(), frontend=None):
     """Returns (last-position logits (B,V), filled caches). With a
     ``frontend`` (B,Nf,d_model) the cache holds Nf + S positions, and
-    decode continues at Nf + S."""
-    hidden, caches, _ = forward(cfg, params, tokens, frontend=frontend,
-                                mode="prefill", caches=caches, rc=rc)
-    return _logits(cfg, params, hidden[:, -1:], rc)[:, -1], caches
+    decode continues at Nf + S. A ``prefill/step`` span under the
+    profiler."""
+    with obs_model.span("step", tokens, "prefill"):
+        hidden, caches, _ = forward(cfg, params, tokens, frontend=frontend,
+                                    mode="prefill", caches=caches, rc=rc)
+        with obs_model.span("head", hidden):
+            return _logits(cfg, params, hidden[:, -1:], rc)[:, -1], caches
 
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params, tokens, pos: int, caches,
                 rc: RunConfig = RunConfig()):
-    """tokens (B,1), pos: int. Returns (logits (B,V), caches)."""
-    hidden, caches, _ = forward(cfg, params, tokens, mode="decode",
-                                caches=caches, pos=pos, rc=rc)
-    return _logits(cfg, params, hidden, rc)[:, -1], caches
+    """tokens (B,1), pos: int. Returns (logits (B,V), caches). A
+    ``decode/step`` span under the profiler."""
+    with obs_model.span("step", tokens, "decode"):
+        hidden, caches, _ = forward(cfg, params, tokens, mode="decode",
+                                    caches=caches, pos=pos, rc=rc)
+        with obs_model.span("head", hidden):
+            return _logits(cfg, params, hidden, rc)[:, -1], caches
 
 
 class Model:
