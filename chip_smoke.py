@@ -33,6 +33,14 @@ Phases, one printed line each; any failure raises and exits non-zero:
              assumes, and where the kernel computes wider than D and Dv
              (f32: D to 8, Dv to chunks of 64; bf16: D to 16, Dv to 8), the
              bound of the padded work
+  decode     the GQA decode-attention kernel at mistral-nemo-12b's chat
+             shape (bf16, B=48, H=32, Hk=8, D=128, a 1,152-row cache at
+             position 1,088) and at one row of a 32k cache (position
+             32,767, split by the wrapper) against its plain version;
+             kernel (card), device (torch.profiler) and plain ms, the
+             host's µs a call, the bytes bound, and SDPA with enable_gqa
+             over the live rows as the library yardstick (the port never
+             calls it)
   ssm_scan   the selective-scan kernel at the Jamba prefill shape (f32,
              B=4, S=1024, D=16384, N=16) and a ragged one (S=1000,
              D=16376) against its plain version; kernel, plain, bound ms,
@@ -92,7 +100,8 @@ Phases, one printed line each; any failure raises and exits non-zero:
              one-rank NCCL group), laid out by the sharding rules with
              run_config_for's hook: prefill 4 x 1024 and 8 greedy steps,
              tokens and every step's logits bit-equal to the plain run,
-             flash_attention launched through ops' DTensor branch; the same
+             flash_attention launched through ops' DTensor branch and
+             decode_attention on the local shards; the same
              prefill at head_pad=8 (8 query heads on 1 kv head) within
              1e-4; ms and peak GB. In the train process (below), one step
              of gemma3-1b's 6-layer cut over the mesh (ZeRO-1 moments):
@@ -100,8 +109,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
   serve      full-width gemma3-1b (f32) through repro_torch.launch.serve:
              batch 4, prompt 1024, 32 tokens, a delta snapshot every 8, a
              node kill and failover at 20; tokens and final logits equal to
-             an uninterrupted run; delta_mask and flash_attention launched
-             on that path; then the same decode without snapshots
+             an uninterrupted run; delta_mask, flash_attention and
+             decode_attention launched on that path (and on every serve
+             path of an attention model below: all but rwkv6's and MLA's);
+             then the same decode without snapshots
   jamba      the same serve of the first 4 layers of Jamba-1.5-Large's
              superblock at full width, in bf16 (Mamba + dense, Mamba + MoE,
              Mamba + dense, attention + MoE: 23.0e9 parameters);
@@ -610,6 +621,72 @@ def phase_flash(torch, ops, ref, rl, flash) -> dict:
     return main
 
 
+def phase_decode(torch, ops, ref, rl, dattn) -> dict:
+    """The decode kernel at the chat shape and at one row of a 32k cache
+    (bf16), each row at the given position, against its plain version."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    # B, H, Hk, D, cache rows, position
+    cases = [(48, 32, 8, 128, 1152, 1088), (1, 32, 8, 128, 32768, 32767)]
+    results = {}
+    for b, h, hk, d, s, pos in cases:
+        gen = torch.Generator(device=dev).manual_seed(s + b)
+        q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, s, hk, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        cur = torch.full((b,), pos, dtype=torch.int64, device=dev)
+
+        def kernel():
+            return ops.decode_attention(q, k, v, cur_pos=cur)
+        out = kernel()
+        exp = ref.decode_attention_ref(q.float(), k, v, cur_pos=cur)
+        torch.cuda.synchronize()
+        err = (out.float() - exp).abs().max().item()
+        # one bf16 rounding of the f32 result (test_torch_decode_attention)
+        ok = out.dtype == torch.bfloat16 and torch.allclose(
+            out.float(), exp, rtol=2 ** -8, atol=1e-5)
+        same = torch.equal(out, kernel())
+        ms = time_ms(torch, kernel)
+        dev_ms = device_ms(torch, kernel, r"decode_")
+        host = host_us(torch, kernel)
+        plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(
+            q, k, v, cur_pos=cur))
+        n = pos + 1  # every row shares the position: the live rows alone
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k[:, :n], v[:, :n]))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, enable_gqa=True))
+        work = dattn.work(b, h, hk, n, d, None, 2)
+        bound_ms, bound_by = bound(rl, work, CUDA_CORE_F32_FLOPS)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        g = h // hk
+        splits = dattn.split_count(b * hk * -(-g // dattn.head_group(g)),
+                                   s, sms)
+        label = (f"bf16 B={b} H={h} Hk={hk} D={d} S={s} pos={pos} "
+                 f"splits={splits}")
+        print(f"decode_attention[{label}]: max_abs_err {err:.3e}; two "
+              f"launches {'bit-equal' if same else 'DIFFER'}; kernel "
+              f"{ms:.4f} ms (device {dev_ms:.4f} ms, host {host:.1f} us a "
+              f"call), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {work[1] / 1e6:.1f} "
+              f"MB; {work[1] / dev_ms / 1e6:.0f} GB/s on the device, "
+              f"{bound_ms / dev_ms:.1%} of the bound)", flush=True)
+        if not ok or not same:
+            raise AssertionError(f"decode_attention {label}: max abs err "
+                                 f"{err}, two launches equal {same}")
+        results[(b, s)] = {
+            "label": label, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "host_us": host, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+        del q, k, v, out, exp
+    main = dict(results[(48, 1152)])
+    del main["label"]
+    main["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
+    main["cases"] = list(results.values())
+    return main
+
+
 def phase_flash_bwd(torch, ref, rl, flash) -> dict:
     """The backward kernel at gemma3-1b's train shapes (f32): local layers
     (window 512), the global layer, and a ragged S; then at minicpm3-4b's
@@ -987,10 +1064,11 @@ def serve_runs(get_config, Stage) -> list:
     qwen_vl = get_config("qwen2-vl-2b")
     minicpm, stablelm = get_config("minicpm3-4b"), get_config(STABLELM)
     return [
-        ("serve gemma3-1b f32", SERVE_ARGS, ("delta_mask", "flash_attention"),
+        ("serve gemma3-1b f32", SERVE_ARGS,
+         ("delta_mask", "flash_attention", "decode_attention"),
          get_config("gemma3-1b"), False),
         (f"serve jamba-1.5-large {JAMBA_LAYERS} layers bf16", JAMBA_ARGS,
-         ("delta_mask", "flash_attention", "ssm_scan"),
+         ("delta_mask", "flash_attention", "ssm_scan", "decode_attention"),
          _cut(jamba, Stage, jamba.stages[0].block[:JAMBA_LAYERS], 1), False),
         ("serve rwkv6-1.6b f32", RWKV_ARGS, ("delta_mask",),
          get_config("rwkv6-1.6b"), False),
@@ -1001,29 +1079,29 @@ def serve_runs(get_config, Stage) -> list:
         ("serve minicpm3-4b 62 layers f32", MINICPM_ARGS,
          ("flash_attention",), minicpm, True),
         (f"serve qwen2-vl-2b {QWEN_VL_SERVE_LAYERS} layers f32", QWEN_VL_ARGS,
-         ("delta_mask", "flash_attention"),
+         ("delta_mask", "flash_attention", "decode_attention"),
          _cut(qwen_vl, Stage, qwen_vl.stages[0].block, QWEN_VL_SERVE_LAYERS),
          False),
         (f"serve musicgen-large {MUSICGEN_SERVE_LAYERS} layers f32",
-         MUSICGEN_ARGS, ("delta_mask", "flash_attention"),
+         MUSICGEN_ARGS, ("delta_mask", "flash_attention", "decode_attention"),
          _cut(musicgen, Stage, musicgen.stages[0].block,
               MUSICGEN_SERVE_LAYERS), False),
         ("serve musicgen-large 48 layers f32", MUSICGEN_ARGS,
-         ("flash_attention",), musicgen, True),
+         ("flash_attention", "decode_attention"), musicgen, True),
         (f"serve {DEEPSEEK} {1 + DEEPSEEK_MOE_LAYERS} layers bf16",
-         DEEPSEEK_ARGS, ("delta_mask", "flash_attention"),
+         DEEPSEEK_ARGS, ("delta_mask", "flash_attention", "decode_attention"),
          _deepseek_cut(get_config, Stage), False),
         (f"serve {STABLELM} {STABLELM_SERVE_LAYERS} layers bf16",
-         STABLELM_ARGS, ("delta_mask", "flash_attention"),
+         STABLELM_ARGS, ("delta_mask", "flash_attention", "decode_attention"),
          _cut(stablelm, Stage, stablelm.stages[0].block,
               STABLELM_SERVE_LAYERS), False),
         (f"serve {STABLELM} 40 layers bf16", STABLELM_ARGS,
-         ("flash_attention",), stablelm, True),
+         ("flash_attention", "decode_attention"), stablelm, True),
         (f"serve {PHI} {PHI_SERVE_LAYERS} layers bf16", PHI_ARGS,
-         ("flash_attention",),
+         ("flash_attention", "decode_attention"),
          _cut(phi, Stage, phi.stages[0].block, PHI_SERVE_LAYERS), True),
         (f"serve {QWEN} {QWEN_SERVE_LAYERS} layers bf16", QWEN_ARGS,
-         ("flash_attention",),
+         ("flash_attention", "decode_attention"),
          _cut(qwen, Stage, qwen.stages[0].block, QWEN_SERVE_LAYERS), True)]
 
 
@@ -1573,7 +1651,7 @@ def phase_moe_knobs(torch, ops, get_config) -> dict:
     if err > MOE_GROUPS_TOL:
         raise AssertionError(f"moe_knobs: moe_groups=1 prefill logits "
                              f"differ by {err}")
-    if counts["flash_attention"] <= 0:
+    if counts["flash_attention"] <= 0 or counts["decode_attention"] <= 0:
         raise AssertionError(f"moe_knobs: launches {counts}")
     times = "; ".join(
         f"{name} prefill {r[1]:.2f} ms, decode {r[2]:.2f} ms a step"
@@ -1674,7 +1752,7 @@ def phase_mesh(torch, ops, get_config) -> dict:
                           rtol=HEAD_PAD_TOL):
         raise AssertionError(f"mesh head_pad={HEAD_PAD}: logits differ by "
                              f"{err}")
-    if counts["flash_attention"] <= 0 \
+    if counts["flash_attention"] <= 0 or counts["decode_attention"] <= 0 \
             or sharded["flash_attention"] != counts["flash_attention"]:
         raise AssertionError(f"mesh: launches {counts}, DTensor calls "
                              f"{sharded}")
@@ -1867,6 +1945,7 @@ def main(argv) -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import Stage
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import decode_attention as dattn
     from repro_torch.kernels import delta_encode as delta
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ssm_scan as ssm
@@ -1901,6 +1980,7 @@ def main(argv) -> int:
             "delta_mask": phase_delta(torch, ops, ref, changed_blocks, rl,
                                       delta),
             "flash_attention": phase_flash(torch, ops, ref, rl, flash),
+            "decode_attention": phase_decode(torch, ops, ref, rl, dattn),
             "ssm_scan": phase_ssm(torch, ops, ref, rl, ssm),
             "flash_attention_bwd": phase_flash_bwd(torch, ref, rl, flash),
             "ssm_scan_bwd": phase_ssm_bwd(torch, ref, rl, ssm)}
@@ -1947,6 +2027,11 @@ def main(argv) -> int:
              "flash_attention": (
                  "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:89"),
+             # the JAX package's decode attention is jnp, not Pallas
+             "decode_attention": (
+                 "src/repro_torch/kernels/csrc/decode_attention.cu",
+                 "none: src/repro/models/attention.py:287 decode_attention "
+                 "is jnp"),
              "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                           "src/repro/kernels/ssm_scan.py:66"),
              # no Pallas backward: jax.value_and_grad differentiates the jnp

@@ -5,7 +5,9 @@ compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root
 of the checkout (one shared library per source, named by a hash of the
 source, every ``csrc/*.cuh`` header and the flags, so an edited source or
 header is rebuilt) and loaded with ``ctypes``. ``build()`` starts one
-``nvcc`` per source, all at once.
+``nvcc`` per source, all at once; the first kernel a checkout loads
+builds every source so, and a first run waits for the slowest build, not
+for the sum of the builds of the kernels it uses.
 
 Nothing here runs at import time: the CPU tests import every module, and
 there is no ``nvcc`` where they run.
@@ -24,7 +26,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("delta_mask", "flash_attention", "flash_attention_bwd",
-           "ssm_scan", "ssm_scan_bwd")
+           "ssm_scan", "ssm_scan_bwd", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -84,7 +86,8 @@ def build(names: Iterable[str] = SOURCES) -> float:
 def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
+        if not library_path(name).exists():
+            build()
         lib = ctypes.CDLL(str(library_path(name)))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p

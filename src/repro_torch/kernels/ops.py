@@ -24,6 +24,8 @@ local shard. Only placements that the kernel computes shard by shard are
 taken: ``flash_attention`` batch and heads, ``ssm_scan`` batch and D,
 ``delta_mask`` none. A shard of S, of the head dim or a ``Partial`` sum
 raises; nothing is redistributed behind the caller's back.
+``decode_attention`` takes plain tensors only: the model's decode
+attention lays its DTensors out and calls it on the local shards.
 """
 from __future__ import annotations
 
@@ -33,14 +35,16 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import delta_encode as _delta
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels._build import LAUNCHES
 
-__all__ = ["LAUNCHES", "SHARDED", "delta_mask", "delta_pack",
-           "flash_attention", "record_work", "ssm_scan", "wrap_local"]
+__all__ = ["LAUNCHES", "SHARDED", "decode_attention", "delta_mask",
+           "delta_pack", "flash_attention", "record_work", "ssm_scan",
+           "wrap_local"]
 
 _RECORDERS: list = []  # the lists that record_work holds open
 # calls of each op on DTensors (each runs the op once on its local shard)
@@ -213,6 +217,32 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, scale)
     return _flash_forward(q, k, v, causal, window, scale)
+
+
+def decode_attention(q, k_cache, v_cache, *, cur_pos, window=None,
+                     scale=None):
+    """One decode step's attention: q (B, 1, H, D) against caches
+    (B, S, Hk, D) at the positions up to ``cur_pos`` (B,) int64 (and
+    within ``window`` of it) -> (B, 1, H, D) in ``q.dtype``. H % Hk == 0;
+    query head h reads kv head h // (H/Hk). Not differentiable (serving
+    only). On meta the recorded work is the most a step can read, at the
+    cache's last position (``cur_pos`` is not read there)."""
+    if isinstance(q, DTensor):
+        raise TypeError("decode_attention takes plain tensors; call it on "
+                        "the local shards")
+    if q.is_cuda:  # the card's path first: it is the one that runs hot
+        return _decode.decode_attention_cuda(q, k_cache, v_cache,
+                                             cur_pos=cur_pos, window=window,
+                                             scale=scale)
+    _decode.check_args(q, k_cache, v_cache, cur_pos)
+    if _route(q, "decode_attention") == "meta":
+        b, _, h, d = q.shape
+        _meta_work("decode_attention", _decode.work(
+            b, h, k_cache.shape[2], k_cache.shape[1], d, window,
+            k_cache.element_size(), q.element_size()))
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
+    return ref.decode_attention_ref(q, k_cache, v_cache, cur_pos=cur_pos,
+                                    window=window, scale=scale)
 
 
 class _SSMScan(torch.autograd.Function):

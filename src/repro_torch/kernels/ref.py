@@ -3,11 +3,15 @@
 Twins of ``repro/kernels/ref.py``: each is the mathematical definition,
 written for clarity, not speed; ``flash_attention_bwd_ref`` and
 ``ssm_scan_bwd_ref`` are the gradients of ``flash_attention_ref`` and
-``ssm_scan_ref``, which the JAX package leaves to autodiff. The CPU tests
+``ssm_scan_ref``, which the JAX package leaves to autodiff;
+``decode_attention_ref`` is the port's decode attention as the JAX
+package's ``models/attention.py`` computes it in jnp. The CPU tests
 run them, and ``chip_smoke.py`` holds each CUDA kernel against them on the
 card. On the main path they run only for tensors that lie on the CPU.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -73,6 +77,30 @@ def flash_attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
     dk = dk.reshape(b, hk, g, s, d).sum(dim=2)
     dv = dv.reshape(b, hk, g, s, v.shape[-1]).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, *, cur_pos, window=None,
+                         scale=None):
+    """Single-step decode. q: (B, 1, H, D), caches: (B, S, Hk, D),
+    cur_pos: (B,). Each kv head repeated over its group of query heads,
+    every score of the cache in f32 with the finite ``-1e30`` mask on the
+    positions past ``cur_pos`` or outside ``window``, output cast to
+    ``q.dtype``. Query head h reads kv head h // (H/Hk)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if k_cache.shape[2] != q.shape[2]:
+        k_cache = k_cache.repeat_interleave(q.shape[2] // k_cache.shape[2],
+                                            dim=2)
+        v_cache = v_cache.repeat_interleave(q.shape[2] // v_cache.shape[2],
+                                            dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = kpos[None, :] <= cur_pos[:, None]
+    if window is not None:
+        mask &= (cur_pos[:, None] - kpos[None, :]) < window
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bhqd", p, v_cache.float())
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def ssm_scan_ref(decay, u, c, state0):

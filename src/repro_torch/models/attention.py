@@ -2,13 +2,14 @@
 flash-attention kernel, and single-step decode against the cache.
 
 Port of ``repro/models/attention.py``. Prefill attention calls
-``kernels.ops.flash_attention`` (the CUDA kernel on the card, its plain
-version on the CPU), where the JAX package computes the same function in
-jnp; MLA's heads reach it with D = nope + rope and Dv = v. MLA caches the
-compressed latent ``c_kv`` and one shared rope key a token, and decodes
-either in the latent space (``absorb``, the default) or by expanding K and
-V from the latent. The JAX package's ``chunked``/``tri``/``naive``/
-``window`` strategies are one kernel here.
+``kernels.ops.flash_attention`` and GQA decode attention
+``kernels.ops.decode_attention`` (the CUDA kernels on the card, their plain
+versions on the CPU), where the JAX package computes the same functions in
+jnp; MLA's heads reach the flash kernel with D = nope + rope and Dv = v.
+MLA caches the compressed latent ``c_kv`` and one shared rope key a
+token, and decodes either in the latent space (``absorb``, the default) or
+by expanding K and V from the latent. The JAX package's ``chunked``/
+``tri``/``naive``/``window`` strategies are one kernel here.
 
 The caches are updated in place (prefill writes [0, S), decode writes one
 position), where the JAX package returns updated copies: this saves a
@@ -150,22 +151,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, cur_pos: torch.Tensor,
                      window: Optional[int] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """Single-step decode. q:(B,1,H,D), caches:(B,S,Hk,D), cur_pos:(B,)."""
+    """Single-step decode. q:(B,1,H,D), caches:(B,S,Hk,D), cur_pos:(B,).
+    ``kernels.ops.decode_attention``: the decode kernel on the card, which
+    reads each kv head's live rows once for its group of query heads, and
+    its plain version (the cache repeated over the group, two f32 einsums)
+    on the CPU."""
     if isinstance(q, DTensor):
         return _decode_attention_shards(q, k_cache, v_cache, cur_pos=cur_pos,
                                         window=window, scale=scale)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    k_cache = _expand_kv(k_cache, q.shape[2])
-    v_cache = _expand_kv(v_cache, q.shape[2])
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
-    kpos = torch.arange(k_cache.shape[1], device=q.device)
-    mask = kpos[None, :] <= cur_pos[:, None]
-    if window is not None:
-        mask &= (cur_pos[:, None] - kpos[None, :]) < window
-    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bhqd", p, v_cache.float())
-    return out.transpose(1, 2).to(q.dtype)
+    return ops.decode_attention(q, k_cache, v_cache, cur_pos=cur_pos,
+                                window=window, scale=scale)
 
 
 def _decode_attention_shards(q, k_cache, v_cache, *, cur_pos, window,

@@ -17,7 +17,7 @@ nothing is allocated or computed, and counts what each op would do:
     (``index``, ``embedding``) counts twice its result, not its whole
     table, and an indexed write in place (``index_copy_``) twice its
     update;
-  - the five CUDA kernels run through ``ctypes``, which no mode sees: on a
+  - the six CUDA kernels run through ``ctypes``, which no mode sees: on a
     meta tensor ``kernels.ops`` hands back empty outputs and records each
     kernel's analytic ``(flops, bytes)`` (``work`` in its kernel module),
     which are added here;

@@ -299,7 +299,13 @@ DECODE_ARCHS = ["gemma3-1b-reduced", "deepseek-moe-16b-reduced",
 @pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_decode_flops_equal_jax(arch):
     """One decode step against a 64-position cache, B = 2, f32: the port's
-    count equals the HLO count of JAX's jitted ``decode_step`` exactly."""
+    count equals the HLO count of JAX's jitted ``decode_step`` exactly,
+    with JAX's two einsums over the whole cache, ``4·B·H·S·D`` a GQA
+    layer, in place of the decode kernel's count, which is that at the
+    cache's last position but for a sliding window's layers (gemma3's
+    local ones), where it reads the window's rows alone. The kernel is
+    the only one on the path, once a GQA layer; MLA and RWKV decode launch
+    none."""
     jcfg, pcfg = jax_get_config(arch), port_get_config(arch)
     jrc = _jax_rc()
     want = _jax_flops(
@@ -307,7 +313,16 @@ def test_decode_flops_equal_jax(arch):
         _specs(jcfg, jrc), _sds(B, 1), _sds(),
         jax.eval_shape(lambda: jtf.init_cache(jcfg, B, S, jrc)))
     cost = roofline.step_cost(pcfg, _port_rc(), "decode", B, S)
-    assert cost.flops == want and cost.kernel_flops == 0
+    gqa = [spec.attn for spec in pcfg.layer_specs()
+           if spec.kind == "attn" and spec.attn.mla is None]
+    full = sum(4 * B * a.n_heads * S * a.head_dim for a in gqa)
+    assert cost.flops - cost.kernel_flops + full == want
+    n_gqa = len(gqa)
+    kernels = {name: row for name, row in cost.rows.items()
+               if name.startswith("kernel:")}
+    assert {name: row[0] for name, row in kernels.items()} \
+        == ({"kernel:decode_attention": n_gqa} if n_gqa else {})
+    assert cost.kernel_flops == sum(row[1] for row in kernels.values())
 
 
 @pytest.mark.parametrize("arch", DECODE_ARCHS + ["qwen2-vl-2b-reduced"])

@@ -60,7 +60,7 @@ def test_serve_failover_matches_uninterrupted_run(small_blocks, tmp_path):
     # on the CPU the plain versions run: no kernel was launched
     assert stats["launches"] == {"delta_mask": 0, "flash_attention": 0,
                                  "flash_attention_bwd": 0, "ssm_scan": 0,
-                                 "ssm_scan_bwd": 0}
+                                 "ssm_scan_bwd": 0, "decode_attention": 0}
     assert stats["peak_bytes"] is None  # a device metric: not on the CPU
 
 
