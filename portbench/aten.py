@@ -1,5 +1,5 @@
-"""Count the aten calls the host dispatches (copied from the repository's
-``tools/aten_calls.py``): a step whose device work is small against the
+"""Count the aten calls the host dispatches, each call that a
+``TorchDispatchMode`` sees: a step whose device work is small against the
 host's cost a call is paced by the host. Views count too: each is a
 dispatch, though none launches a kernel."""
 from __future__ import annotations

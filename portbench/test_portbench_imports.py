@@ -33,9 +33,14 @@ def test_no_jax_import_in_sources(path):
 
 
 def test_reference_imports_nothing_of_the_program():
-    """The reference and the portbench modules it reaches import no
-    ``repro_torch`` (nor JAX), transitively."""
-    seen, todo = set(), ["portbench.families.transformer.reference"]
+    """The reference of every family under ``families/`` and the
+    portbench modules it reaches import no ``repro_torch`` (nor JAX),
+    transitively."""
+    todo = [f"portbench.families.{p.name}.reference"
+            for p in sorted((HERE / "families").iterdir())
+            if (p / "__init__.py").is_file()]
+    assert todo
+    seen = set()
     while todo:
         mod = todo.pop()
         if mod in seen:
@@ -50,10 +55,10 @@ def test_reference_imports_nothing_of_the_program():
 
 
 def test_a_run_loads_no_jax_in_a_fresh_process():
-    """Every module of the benchmark imported, and a tiny serve and train
-    cell run on the CPU through the harness, in a new interpreter (the
-    test process may hold JAX from other tests); then ``sys.modules``
-    read by whole top-level names."""
+    """Every module of the benchmark imported, and every cell of
+    ``BENCHMARK.json`` run at its tiny sizes on the CPU through the
+    harness, in a new interpreter (the test process may hold JAX from
+    other tests); then ``sys.modules`` read by whole top-level names."""
     code = """
 import importlib, json, pathlib, sys, time
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
@@ -63,10 +68,12 @@ for p in sorted(here.rglob("*.py")):
     rel = p.relative_to(here.parent).with_suffix("")
     if p.parent.name == "metrics":
         manifest.reader(p.stem)
+    elif p.parent.name == "expect":  # named by configuration, test-only
+        continue
     elif not p.name.startswith("test_"):
         importlib.import_module(".".join(rel.parts).replace(".__init__", ""))
 bench = manifest.benchmark()
-for name in ("mistral-nemo-12b.chat", "mistral-nemo-12b-l5.train"):
+for name in [w["name"] for w in bench["workloads"]]:
     harness.run(bench, name, 1, 0.2, False, "cpu", time.perf_counter(),
                 cell=tiny.cell(name, "float32"))
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))

@@ -3,6 +3,7 @@ port on the CPU at tiny sizes: the same parameter tree, the same
 configuration as the port's own builder makes, and the same logits, losses,
 gradients and updates."""
 import dataclasses
+import importlib.util
 import json
 import math
 
@@ -24,22 +25,24 @@ MOE = {"n_routed_experts": 8, "num_experts_per_tok": 2,
        "aux_loss_alpha": 0.01}
 
 
-def registry(name):
-    """The port's own builder of a uniform dense model at the published
-    numbers that the file stands for."""
-    from repro_torch.configs.base import uniform_dense
-    layers = {"mistral-nemo-12b": 40, "mistral-nemo-12b-l5": 5}[name]
-    return uniform_dense(
-        name, "dense", n_layers=layers, d_model=5120, n_heads=32,
-        n_kv_heads=8, d_ff=14_336, vocab=131_072, head_dim=128,
-        qkv_bias=False, rope_theta=1e6, act="swiglu", norm="rmsnorm",
-        norm_eps=1e-5, tie_embeddings=False, max_seq=16_384)
+def expected(name):
+    """The port's own configuration of the model that the configuration
+    ``name`` stands for: ``arch_config()`` of ``expect/<name>.py``, which
+    builds it with the port's own builder at the published numbers. A
+    configuration brings its own such file; no test names it."""
+    path = manifest.HERE / "expect" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        "portbench.expect." + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.arch_config()
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_configuration_is_the_ports(name):
-    mine = port.arch_config(CONFIGS[name])
-    want = registry(name)
+    cfg = CONFIGS[name]
+    mine = manifest.family(cfg["family"]).port.arch_config(cfg)
+    want = expected(name)
     assert dataclasses.replace(mine, name=want.name) == want
 
 
@@ -47,11 +50,12 @@ def test_configuration_is_the_ports(name):
 def test_layout_is_the_ports(name):
     from repro_torch.models.transformer import RunConfig, init_params
     cfg = CONFIGS[name]
-    meta = init_params(port.arch_config(cfg), torch.Generator(),
+    fam = manifest.family(cfg["family"])
+    meta = init_params(fam.port.arch_config(cfg), torch.Generator(),
                        RunConfig(), device="meta")
     theirs = {k: tuple(v.shape) for k, v in weights.named(meta).items()}
     mine = {"".join(f"/{k}" for k in path): tuple(shape)
-            for path, shape, _ in layout.leaves(cfg)}
+            for path, shape, _ in fam.layout.leaves(cfg)}
     assert mine == theirs
 
 
